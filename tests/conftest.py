@@ -7,3 +7,8 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 if SRC not in sys.path:
     sys.path.insert(0, os.path.abspath(SRC))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: runs a CUDA kernel on the card; skips without one")
