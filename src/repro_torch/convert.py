@@ -23,7 +23,7 @@ BLOCK_TABLES = ("kb_tagmask", "kb_pw", "kb_pb", "kb_selfloop", "kb_init",
 
 #: plan metadata the port reads
 META_KEYS = ("max_depth", "n_states", "state_multiple", "blk", "n_blocks",
-             "block_queries", "grid_order", "segment_target")
+             "block_queries", "grid_order", "segment_target", "ep_tile")
 
 
 def _as_int32(x: np.ndarray) -> np.ndarray:

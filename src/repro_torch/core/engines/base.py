@@ -1,15 +1,17 @@
 """The engine contract of the port: ``FilterPlan``, ``FilterEngine``, registry.
 
-Counterpart of ``src/repro/core/engines/base.py`` (lines 122-175,
-624-728, 890-944, 1445-1474), for engines whose compiled tables are torch
-tensors on one device:
+Counterpart of ``src/repro/core/engines/base.py`` (lines 64-90, 122-175,
+624-728, 890-944, 1005-1086, 1139-1149, 1213-1224, 1404-1474), for
+engines whose compiled tables are torch tensors on one device:
 
 * :class:`FilterPlan` — a frozen dict of tensors on one device plus
   static metadata, built once per profile set by :meth:`FilterEngine.plan`.
 * :class:`FilterEngine` — compile once, then ``filter_batch`` (events)
-  and ``filter_bytes`` (raw wire bytes) into ``(B, Q)`` results.  Every
-  entry point runs on ``device`` (``"cuda"`` unless the caller asks for
-  ``"cpu"``, where the kernels' plain versions run).
+  and ``filter_bytes`` (raw wire bytes) into ``(B, Q)`` results, or
+  ``filter_batch_sparse`` / ``filter_bytes_sparse`` into bounded match
+  lists (:class:`SparseResult`).  Every entry point runs on ``device``
+  (``"cuda"`` unless the caller asks for ``"cpu"``, where the kernels'
+  plain versions run).
 * the registry — the port's own :func:`register` / :func:`create` /
   :func:`names`, separate from the JAX package's.
 """
@@ -21,14 +23,44 @@ from typing import Any, ClassVar, Mapping
 import numpy as np
 import torch
 
-from ..events import ByteBatch, EventBatch
+from ...kernels.ref import compact_rows
+from ..events import DEFAULT_MAX_DEPTH, ByteBatch, EventBatch
 from ..nfa import NFA
-from .result import FilterResult
+from .result import NO_MATCH, FilterResult, SparseResult
 
 
 def _round_up(n: int, multiple: int) -> int:
     multiple = max(1, int(multiple))
     return max(multiple, -(-n // multiple) * multiple)
+
+
+# ------------------------------------------------- sparse verdict compaction
+def _compact_matches(matched: torch.Tensor, first: torch.Tensor,
+                     cols: torch.Tensor, cap: int):
+    """Cumsum-compact a dense device verdict into a bounded match buffer.
+
+    ``matched`` ``(B, K)`` bool and ``first`` ``(B, K)`` int32 on the
+    device; ``cols`` ``(K,)`` int32 names each column (a query column or
+    an accept-lane class; ``-1`` discards the column's hits).  The hits
+    are compacted in row-major order into ``cap``-row buffers
+    (:func:`~repro_torch.kernels.ref.compact_rows`), so the host reads
+    ``3 × cap`` int32 and one count.  Returns ``(doc, col, first,
+    count)``; ``count > cap`` means the buffers were truncated and the
+    caller must recompute densely.
+    """
+    hits = matched & (cols >= 0)[None, :]
+    doc = torch.arange(hits.shape[0], dtype=torch.int32,
+                       device=hits.device)[:, None].expand(hits.shape)
+    (bdoc, bcol, bfirst), count = compact_rows(
+        hits.reshape(-1), (doc, cols[None, :].expand(hits.shape), first),
+        (-1, -1, NO_MATCH), cap)
+    return bdoc, bcol, bfirst, count
+
+
+#: default event-axis padding bucket of the byte-ingest paths; an engine
+#: created with ``event_bucket=`` (``FilterStage`` passes its own
+#: ``bucket``) overrides it
+DEFAULT_EVENT_BUCKET = 128
 
 
 #: the JAX package's default per-program VMEM budget, which sizes its
@@ -44,9 +76,6 @@ NOT_PORTED = {
     "vmem_budget": "queue 1 item 11 (H100 launch-shape policy)",
     "smem_budget": "queue 1 item 11 (H100 launch-shape policy)",
     "autotune": "queue 1 item 11 (measured autotune)",
-    "sparse_epilogue": "queue 1 item 5 (sparse delivery)",
-    "ep_tile": "queue 1 item 5 (sparse delivery)",
-    "match_cap": "queue 1 item 5 (sparse delivery)",
     "kernel": "queue 1 item 9 (one execution path per engine so far)",
     "kernel_interpret": "nothing: Pallas interpret mode has no CUDA twin",
 }
@@ -122,8 +151,107 @@ class FilterEngine(abc.ABC):
         """Filter a document batch; returns a ``(B, Q)`` result."""
 
     @abc.abstractmethod
-    def filter_bytes(self, bb: ByteBatch) -> FilterResult:
-        """Raw wire bytes → ``(B, Q)`` result, decoded on the device."""
+    def device_verdicts(self, batch: EventBatch
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(B, Q)`` matched (bool) and first (int32) tensors of a batch,
+        left on the device (what :meth:`filter_batch` brings back)."""
+
+    def filter_bytes(self, bb: ByteBatch, *,
+                     bucket: int | None = None) -> FilterResult:
+        """Raw wire bytes → ``(B, Q)`` verdicts, parsed on the device.
+
+        The batch is parsed by :func:`repro_torch.kernels.parse.
+        parse_batch` and fed to :meth:`filter_batch` as an `EventBatch`
+        of device tensors.  The parse honours the engine's ``max_depth``
+        and raises :class:`~repro_torch.core.events.DepthOverflow` on
+        documents nested deeper.  ``bucket`` pads the event axis;
+        ``None`` resolves through :meth:`_event_bucket`.  Engines with a
+        one-launch bytes path override this.
+        """
+        return self.filter_batch(self._parse(bb, bucket))
+
+    def _parse(self, bb: ByteBatch, bucket: int | None) -> EventBatch:
+        from ...kernels.parse import parse_batch
+
+        return parse_batch(
+            bb, n_events=bb.event_bound(bucket=self._event_bucket(bucket)),
+            max_depth=int(getattr(self, "max_depth", DEFAULT_MAX_DEPTH)),
+            device=self.device)
+
+    def _event_bucket(self, bucket: int | None) -> int:
+        """The event-axis padding bucket of the byte paths: the argument,
+        else the ``event_bucket=`` option (``FilterStage`` sets it to its
+        own ``bucket``), else :data:`DEFAULT_EVENT_BUCKET`."""
+        if bucket is not None:
+            return int(bucket)
+        return int(self.options.get("event_bucket", DEFAULT_EVENT_BUCKET))
+
+    # ------------------------------------------------- sparse verdict path
+    def match_cap(self, batch_size: int, n_cols: int,
+                  cap: int | None = None) -> int:
+        """The bounded match-buffer size of one sparse call.
+
+        The argument wins, then the ``match_cap=`` option; the default
+        budgets 32 matches per document (at least 4096).  Clamped to the
+        dense size, past which the buffer cannot overflow.
+        """
+        if cap is None:
+            cap = self.options.get("match_cap")
+        if cap is None:
+            cap = max(4096, 32 * batch_size)
+        return int(max(1, min(int(cap), batch_size * max(1, n_cols))))
+
+    def _sparse_from_buffers(self, bufs, count: int, cap: int, *,
+                             batch_size: int, n_queries: int,
+                             meta: dict | None = None,
+                             dense_fallback=None) -> SparseResult:
+        """A :class:`SparseResult` from :func:`_compact_matches` output.
+
+        Only the first ``count`` rows of ``bufs`` are real.  ``count >
+        cap`` means the buffer overflowed: the verdicts are recomputed by
+        ``dense_fallback()``, exact, flagged ``overflowed`` and named
+        ``path="dense-overflow"``, with the route that was tried kept as
+        ``attempted_path``.
+        """
+        meta = dict(meta or (), match_cap=cap)
+        if count > cap:
+            sp = dense_fallback().sparsify()
+            sp.overflowed = True
+            sp.meta.update(meta, matches=count,
+                           attempted_path=meta.get("path"),
+                           path="dense-overflow")
+            return sp
+        docs, cols, first = (b[:count].cpu().numpy() for b in bufs)
+        return SparseResult(docs, cols, first, batch_size=batch_size,
+                            n_queries=n_queries, meta=meta)
+
+    def filter_batch_sparse(self, batch: EventBatch, *,
+                            match_cap: int | None = None) -> SparseResult:
+        """Sparse twin of :meth:`filter_batch`: the dense verdict is
+        compacted on the device (:func:`_compact_matches`), and the host
+        reads a bounded ``(doc, query, first)`` list instead of the
+        ``(B, Q)`` bitmap (``path="device-compact"``).
+        :meth:`SparseResult.densify` gives back :meth:`filter_batch`."""
+        matched, first = self.device_verdicts(batch)
+        b, q = batch.batch_size, int(matched.shape[-1])
+        cap = self.match_cap(b, q, match_cap)
+        *bufs, n = _compact_matches(
+            matched, first,
+            torch.arange(q, dtype=torch.int32, device=matched.device), cap)
+        return self._sparse_from_buffers(
+            bufs, int(n), cap, batch_size=b, n_queries=q,
+            meta={"path": "device-compact"},
+            dense_fallback=lambda: FilterResult(matched.cpu().numpy(),
+                                                first.cpu().numpy()))
+
+    def filter_bytes_sparse(self, bb: ByteBatch, *,
+                            bucket: int | None = None,
+                            match_cap: int | None = None) -> SparseResult:
+        """Bytes in, sparse match list out: device parse (raising
+        :class:`~repro_torch.core.events.DepthOverflow` past
+        ``max_depth``), then :meth:`filter_batch_sparse`."""
+        return self.filter_batch_sparse(self._parse(bb, bucket),
+                                        match_cap=match_cap)
 
     def to_device(self, array: np.ndarray) -> torch.Tensor:
         """Stage a host array on this engine's device.

@@ -1,6 +1,7 @@
-# Subset of src/repro/core/events.py in numpy form (the port imports nothing
-# of the JAX package): event streams, event/byte batches, segment packing,
-# the byte codec and the document error taxonomy.
+# Subset of src/repro/core/events.py (the port imports nothing of the JAX
+# package): event streams, event/byte batches, segment packing, the byte
+# codec and the document error taxonomy; batches hold numpy arrays or, once
+# parsed on a device, torch tensors.
 """Document event streams and the fixed-width byte codec.
 
 A document is represented as a balanced sequence of *events*:
@@ -25,6 +26,7 @@ from dataclasses import dataclass
 from typing import Iterator, Sequence
 
 import numpy as np
+import torch
 
 from .dictionary import (
     CLOSE_NBYTES,
@@ -81,7 +83,20 @@ class KernelFault(DocumentError):
 DEFAULT_MAX_DEPTH = 64
 
 
-def _as_field(x, dtype) -> np.ndarray:
+_TORCH_DTYPES = {np.dtype(np.int8): torch.int8,
+                 np.dtype(np.int32): torch.int32,
+                 np.dtype(bool): torch.bool}
+
+
+def _as_field(x, dtype):
+    """Coerce a batch field without moving a tensor off its device.
+
+    Torch tensors keep their placement (cast to the field's type), so a
+    batch parsed on the card flows to an engine there with no host round
+    trip; anything else becomes a numpy array of ``dtype``.
+    """
+    if isinstance(x, torch.Tensor):
+        return x.to(_TORCH_DTYPES[np.dtype(dtype)])
     return np.asarray(x, dtype)
 
 
@@ -205,7 +220,11 @@ class EventBatch:
     document stack (what the levelwise engines bucket by); ``valid`` masks
     the padding tail; ``n_events[b]`` is the true length of document b.
 
-    Fields are numpy arrays; engines move what they read to their device.
+    Fields are numpy arrays for a batch built on the host
+    (:meth:`from_streams`) or torch tensors for one parsed on a device
+    (:func:`repro_torch.kernels.parse.parse_batch`), which stay there:
+    engines on that device take them as they are, and :meth:`to_host`
+    brings them back.
     """
 
     kind: np.ndarray      # (B, N) int8  — OPEN / CLOSE / PAD
@@ -225,7 +244,20 @@ class EventBatch:
         assert self.kind.ndim == 2
         assert self.kind.shape == self.tag_id.shape == self.depth.shape \
             == self.parent.shape == self.valid.shape
-        assert self.n_events.shape == (self.kind.shape[0],)
+        assert tuple(self.n_events.shape) == (self.kind.shape[0],)
+
+    @property
+    def is_device(self) -> bool:
+        """True when the fields are torch tensors, not numpy arrays."""
+        return isinstance(self.kind, torch.Tensor)
+
+    def to_host(self) -> "EventBatch":
+        """The same batch in numpy (no-op for a host batch)."""
+        if not self.is_device:
+            return self
+        return EventBatch(*(a.cpu().numpy() for a in
+                            (self.kind, self.tag_id, self.depth,
+                             self.parent, self.valid, self.n_events)))
 
     # ----------------------------------------------------------- properties
     @property

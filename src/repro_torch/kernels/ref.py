@@ -1,10 +1,11 @@
 """Plain PyTorch versions of the streaming filter's arithmetic.
 
-Counterpart of ``src/repro/kernels/ref.py`` (lines 13-146): the byte
-classifier of the character pre-decoder and the per-event step of the
-bit-packed streaming filter, written with tensor ops only.  They are the
-CPU path of the kernel wrappers in :mod:`.stream_filter` and the yardstick
-the CUDA kernels are held against on the card; they are not fast.
+Counterpart of ``src/repro/kernels/ref.py``: the byte classifier of the
+character pre-decoder, the per-event step of the bit-packed streaming
+filter and the sparse epilogue, written with tensor ops only.  They are
+the CPU path of the kernel wrappers in :mod:`.stream_filter` and
+:mod:`.predecode` and the yardstick the CUDA kernels are held against on
+the card; they are not fast.
 
 Packed state words are ``torch.int32`` bit views of ``uint32`` words:
 shifts are arithmetic on int32, so every extracted bit is masked with
@@ -149,3 +150,50 @@ def stream_filter_words(events: torch.Tensor, tagmask: torch.Tensor,
             tagmask[None], pw[None], pb[None], selfloop_words[None],
             acc_word[None], acc_bit[None], max_depth=max_depth)
     return matched[0, 0], first[0, 0]
+
+
+def compact_rows(hits: torch.Tensor, columns, fills, cap: int):
+    """The first ``cap`` hits of a flat mask, in order, as row columns.
+
+    Each hit's rank is an inclusive cumsum of ``hits`` minus one, and it
+    is scattered to that slot of one ``(cap,)`` int32 buffer per entry of
+    ``columns`` (flat tensors aligned with ``hits``; slots past the hits
+    keep ``fills``); ranks past ``cap`` drop.  Returns the buffers and
+    the true hit count as an int32 scalar tensor.
+    """
+    rank = torch.cumsum(hits.to(torch.int64), 0) - 1
+    dest = torch.where(hits & (rank < cap), rank, cap)    # cap: dropped
+    bufs = [torch.full((cap + 1,), fill, dtype=torch.int32,
+                       device=hits.device)
+            .scatter_(0, dest, col.reshape(-1).to(torch.int32))[:cap]
+            for col, fill in zip(columns, fills)]
+    return bufs, hits.sum(dtype=torch.int32)
+
+
+def sparse_epilogue(matched: torch.Tensor, first: torch.Tensor,
+                    lane_cls: torch.Tensor, doc_ids: torch.Tensor, cap: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dense accept lanes → the bounded ``(doc, class, first)`` buffer.
+
+    The plain version of the fused sparse epilogue (JAX
+    ``ref.sparse_epilogue``).  ``matched``/``first`` are dense kernel
+    outputs, ``(B, G, QB)`` (event launch, ``doc_ids`` ``(B, 1)``) or
+    ``(S, G, D, QB)`` (bytes launch, ``doc_ids`` ``(S, D)``);
+    ``lane_cls`` ``(G, QB)`` names each lane's accept class (``-1`` =
+    inert).  Hits are taken in the order of the TPU's sequential ``"bg"``
+    grid — (row, block, slot, lane), the row-major order of the dense
+    outputs — and appended while the running count is below ``cap``, so
+    the rows equal the Pallas kernel's bit for bit even past overflow.
+    Rows of slots with ``doc_id < 0`` are dropped.  Returns ``buf`` (cap,
+    3) int32 with ``(-1, -1, NO_MATCH)`` past the rows, and ``count``
+    (1,) int32, the true number of hits (``count > cap`` is overflow).
+    """
+    if matched.dim() == 3:                      # event launch: one slot
+        matched, first = matched[:, :, None], first[:, :, None]
+    s, g, d, qb = matched.shape
+    doc = doc_ids.reshape(s, 1, d, 1).expand(s, g, d, qb)
+    cls = lane_cls.reshape(1, g, 1, qb).expand(s, g, d, qb)
+    hits = ((matched != 0) & (cls >= 0) & (doc >= 0)).reshape(-1)
+    cols, count = compact_rows(hits, (doc, cls, first), (-1, -1, NO_MATCH),
+                               cap)
+    return torch.stack(cols, 1), count.reshape(1)

@@ -1,4 +1,4 @@
-"""The streaming filter's two megakernels: wrappers, plain versions, counts.
+"""The streaming filter's megakernels: wrappers, plain versions, counts.
 
 Counterpart of ``src/repro/kernels/stream_filter.py``:
 
@@ -8,14 +8,20 @@ Counterpart of ``src/repro/kernels/stream_filter.py``:
   document starts ``(S, D+1)`` → accept lanes ``(S, G, D, QB)`` in one
   launch (decode, compaction, filter, per-document resets); replaces
   ``stream_filter_bytes_pallas``.
+* :func:`stream_filter_sparse` (K4) and :func:`stream_filter_bytes_sparse`
+  (K3) — the same streams ending in the sparse epilogue: a bounded
+  ``(cap, 3)`` buffer of ``(doc, accept class, first)`` rows and the true
+  row count, with no dense lanes anywhere; replace
+  ``stream_filter_pallas_sparse`` and ``stream_filter_bytes_pallas_sparse``.
 
 Each wrapper takes its device from its inputs.  On CUDA tensors it
 launches the hand-written kernel (``csrc/stream_filter.cu``, built and
 loaded by :mod:`.build`) and adds one to its ``launches`` count; on CPU
 tensors it runs the plain version beside it (:func:`stream_filter_plain`,
-:func:`stream_filter_bytes_plain`), a Python loop over events vectorised
-over (document or segment, block, word).  There is no fallback from one to
-the other.
+:func:`stream_filter_bytes_plain`, a Python loop over events vectorised
+over (document or segment, block, word); the sparse ones are those
+followed by :func:`ref.sparse_epilogue`).  There is no fallback from one
+to the other.
 
 Block tables are the bit-packed per-block layout of
 :func:`repro_torch.kernels.blocks.state_layout`, as int32 bit views:
@@ -86,15 +92,19 @@ def check_block_tables(tables: dict[str, np.ndarray]) -> None:
             raise ValueError(f"{name} holds values outside [0, {hi})")
 
 
-def _smem_check(lib, n_tags: int, wb: int, qb: int, max_depth: int) -> None:
-    need = int(lib.sf_smem_bytes(n_tags, wb, qb, max_depth))
+def _smem_check(lib, n_tags: int, wb: int, qb: int, max_depth: int,
+                sparse: bool = False) -> None:
+    need = int(lib.sf_smem_bytes(n_tags, wb, qb, max_depth, int(sparse)))
     if need > SMEM_LIMIT:
+        lanes = 4 if sparse else 3
         raise ValueError(
             f"block needs {need} B of shared memory, over the {SMEM_LIMIT} B "
             f"limit: tag masks (T+1)*WB*4 = {(n_tags + 1) * wb * 4}, parent "
             f"lanes 32*WB*4 = {32 * wb * 4}, stack (max_depth+2)*WB*4 = "
-            f"{(max_depth + 2) * wb * 4}, accept lanes 3*QB*4 = {12 * qb} "
-            f"(T={n_tags}, WB={wb}, QB={qb}, max_depth={max_depth})")
+            f"{(max_depth + 2) * wb * 4}, accept lanes {lanes}*QB*4 = "
+            f"{4 * lanes * qb}" + (" (with their accept classes)"
+                                   if sparse else "")
+            + f" (T={n_tags}, WB={wb}, QB={qb}, max_depth={max_depth})")
 
 
 def _ptr(x: torch.Tensor) -> ctypes.c_void_p:
@@ -131,7 +141,7 @@ def stream_filter(events: torch.Tensor, tagmask: torch.Tensor,
         raise ValueError(f"no kernel for device {dev}")
     from . import build
 
-    lib = build.load()
+    lib = build.load("stream_filter")
     _smem_check(lib, n_tags, wb, qb, max_depth)
     b, n = events.shape
     if b > 65535:
@@ -216,7 +226,7 @@ def stream_filter_bytes(data: torch.Tensor, starts: torch.Tensor,
         raise ValueError(f"no kernel for device {dev}")
     from . import build
 
-    lib = build.load()
+    lib = build.load("stream_filter")
     _smem_check(lib, n_tags, wb, qb, max_depth)
     s, length = data.shape
     d = starts.shape[1] - 1
@@ -315,3 +325,180 @@ def stream_filter_bytes_plain(data: torch.Tensor, starts: torch.Tensor,
     out_m[rows, :, d] = matched.to(torch.int32)
     out_f[rows, :, d] = first
     return out_m, out_f
+
+
+# ------------------------------------------------------------- K4 and K3
+def epilogue_window(qb: int, ep_tile: int) -> int:
+    """Rows of the TPU epilogue's emission window: ``qb`` lanes can all
+    hit, tiled by ``ep_tile``.  The CUDA epilogue has no window; the
+    engine's choice between the fused epilogue and lane compaction reads
+    it, as the JAX package's does."""
+    tile = max(8, int(ep_tile))
+    return max(tile, -(-int(qb) // tile) * tile)
+
+
+def _sparse_args(doc_ids: torch.Tensor, lane_cls: torch.Tensor, cap: int,
+                 rows: int, slots: int, g: int, qb: int,
+                 device: torch.device) -> int:
+    _check(doc_ids, "doc_ids", torch.int32, device)
+    _check(lane_cls, "lane_cls", torch.int32, device)
+    if tuple(doc_ids.shape) != (rows, slots):
+        raise ValueError(f"doc_ids has shape {tuple(doc_ids.shape)}, "
+                         f"expected {(rows, slots)}")
+    if tuple(lane_cls.shape) != (g, qb):
+        raise ValueError(f"lane_cls has shape {tuple(lane_cls.shape)}, "
+                         f"expected {(g, qb)}")
+    cap = int(cap)
+    if not 1 <= cap < _INT32_MAX:
+        raise ValueError(f"cap={cap} must lie in [1, 2**31 - 1)")
+    return cap
+
+
+def _empty_rows(cap: int, device: torch.device
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(cap, 3) rows of ``(-1, -1, NO_MATCH)`` and a zero counter, made on
+    the current stream, where the kernel then runs."""
+    buf = torch.empty((cap, 3), dtype=torch.int32, device=device)
+    buf[:, :2] = -1
+    buf[:, 2] = NO_MATCH
+    return buf, torch.zeros(1, dtype=torch.int32, device=device)
+
+
+def stream_filter_sparse(events: torch.Tensor, doc_ids: torch.Tensor,
+                         tagmask: torch.Tensor, pw: torch.Tensor,
+                         pb: torch.Tensor, selfloop: torch.Tensor,
+                         init: torch.Tensor, acc_word: torch.Tensor,
+                         acc_bit: torch.Tensor, lane_cls: torch.Tensor, *,
+                         cap: int, max_depth: int
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1's stream ending in the sparse epilogue (K4).
+
+    ``doc_ids`` (B, 1) int32 names each batch row (``< 0`` emits
+    nothing); ``lane_cls`` (G, QB) int32 names each lane's accept class
+    (``-1`` = inert).  Returns ``buf`` (cap, 3) int32 rows ``(doc,
+    class, first)`` and ``count`` (1,) int32, the true number of rows:
+    only ``buf[:min(count, cap)]`` is valid, ``count > cap`` is overflow,
+    and on the card the row order is not fixed.
+    """
+    dev = events.device
+    tables = (tagmask, pw, pb, selfloop, init, acc_word, acc_bit)
+    g, n_tags, wb, qb = _table_dims(tables, dev)
+    _check(events, "events", torch.int32, dev)
+    if events.dim() != 2:
+        raise ValueError(f"events must be (B, N), got {tuple(events.shape)}")
+    b, n = events.shape
+    cap = _sparse_args(doc_ids, lane_cls, cap, b, 1, g, qb, dev)
+    if dev.type == "cpu":
+        return stream_filter_sparse_plain(events, doc_ids, *tables, lane_cls,
+                                          cap=cap, max_depth=max_depth)
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    from . import build
+
+    lib = build.load("stream_filter")
+    _smem_check(lib, n_tags, wb, qb, max_depth, sparse=True)
+    if b > 65535:
+        raise ValueError(f"batch of {b} documents exceeds the grid's 65535")
+    buf, count = _empty_rows(cap, dev)
+    if b == 0 or g == 0:
+        return buf, count
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.sf_events_sparse(
+            _ptr(events), b, n, _ptr(doc_ids), *map(_ptr, tables), g, n_tags,
+            wb, qb, int(max_depth), _ptr(lane_cls), cap, _ptr(buf),
+            _ptr(count), ctypes.c_void_p(stream))
+    _raise_on(err, "stream_filter_sparse")
+    stream_filter_sparse.launches += 1
+    return buf, count
+
+
+stream_filter_sparse.launches = 0
+
+
+def stream_filter_sparse_plain(events: torch.Tensor, doc_ids: torch.Tensor,
+                               tagmask: torch.Tensor, pw: torch.Tensor,
+                               pb: torch.Tensor, selfloop: torch.Tensor,
+                               init: torch.Tensor, acc_word: torch.Tensor,
+                               acc_bit: torch.Tensor, lane_cls: torch.Tensor,
+                               *, cap: int, max_depth: int
+                               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`stream_filter_sparse`: K1's plain version,
+    then :func:`ref.sparse_epilogue` (rows in the TPU grid's order)."""
+    matched, first = stream_filter_plain(
+        events, tagmask, pw, pb, selfloop, init, acc_word, acc_bit,
+        max_depth=max_depth)
+    return ref.sparse_epilogue(matched, first, lane_cls, doc_ids, cap)
+
+
+def stream_filter_bytes_sparse(data: torch.Tensor, starts: torch.Tensor,
+                               doc_map: torch.Tensor, tagmask: torch.Tensor,
+                               pw: torch.Tensor, pb: torch.Tensor,
+                               selfloop: torch.Tensor, init: torch.Tensor,
+                               acc_word: torch.Tensor, acc_bit: torch.Tensor,
+                               lane_cls: torch.Tensor, *, cap: int,
+                               max_depth: int
+                               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2's stream ending in the sparse epilogue (K3): one launch from raw
+    bytes to the bounded match list.
+
+    ``doc_map`` (S, D) int32 names each segment slot's batch row (``-1``
+    = unused slot, emits nothing; ``SegmentPack.doc_ids``, or
+    ``arange(B)[:, None]`` unpacked).  Other inputs as for
+    :func:`stream_filter_bytes` and :func:`stream_filter_sparse`; the
+    result contract is :func:`stream_filter_sparse`'s.
+    """
+    dev = data.device
+    tables = (tagmask, pw, pb, selfloop, init, acc_word, acc_bit)
+    g, n_tags, wb, qb = _table_dims(tables, dev)
+    _check(data, "data", torch.uint8, dev)
+    _check(starts, "starts", torch.int32, dev)
+    if data.dim() != 2 or starts.dim() != 2 \
+            or starts.shape[0] != data.shape[0] or starts.shape[1] < 2:
+        raise ValueError(f"data (S, L) and starts (S, D+1) disagree: "
+                         f"{tuple(data.shape)} vs {tuple(starts.shape)}")
+    s, length = data.shape
+    d = starts.shape[1] - 1
+    cap = _sparse_args(doc_map, lane_cls, cap, s, d, g, qb, dev)
+    if dev.type == "cpu":
+        return stream_filter_bytes_sparse_plain(
+            data, starts, doc_map, *tables, lane_cls, cap=cap,
+            max_depth=max_depth)
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    from . import build
+
+    lib = build.load("stream_filter")
+    _smem_check(lib, n_tags, wb, qb, max_depth, sparse=True)
+    if s > 65535:
+        raise ValueError(f"{s} segments exceed the grid's 65535")
+    buf, count = _empty_rows(cap, dev)
+    if s == 0 or g == 0:
+        return buf, count
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.sf_bytes_sparse(
+            _ptr(data), s, length, _ptr(starts), d, _ptr(doc_map),
+            *map(_ptr, tables), g, n_tags, wb, qb, int(max_depth),
+            _ptr(lane_cls), cap, _ptr(buf), _ptr(count),
+            ctypes.c_void_p(stream))
+    _raise_on(err, "stream_filter_bytes_sparse")
+    stream_filter_bytes_sparse.launches += 1
+    return buf, count
+
+
+stream_filter_bytes_sparse.launches = 0
+
+
+def stream_filter_bytes_sparse_plain(
+        data: torch.Tensor, starts: torch.Tensor, doc_map: torch.Tensor,
+        tagmask: torch.Tensor, pw: torch.Tensor, pb: torch.Tensor,
+        selfloop: torch.Tensor, init: torch.Tensor, acc_word: torch.Tensor,
+        acc_bit: torch.Tensor, lane_cls: torch.Tensor, *, cap: int,
+        max_depth: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`stream_filter_bytes_sparse`: K2's plain
+    version, then :func:`ref.sparse_epilogue`."""
+    matched, first = stream_filter_bytes_plain(
+        data, starts, tagmask, pw, pb, selfloop, init, acc_word, acc_bit,
+        max_depth=max_depth)
+    return ref.sparse_epilogue(matched, first, lane_cls, doc_map, cap)

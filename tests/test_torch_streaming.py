@@ -103,9 +103,9 @@ class TestEngineAgainstScan:
 
 class TestEngineOptions:
     @pytest.mark.parametrize("opts,exc", [
-        ({"fuse": False}, NotImplementedError),
+        ({"plan_cache": object()}, NotImplementedError),
         ({"minimize": True}, NotImplementedError),
-        ({"sparse_epilogue": "on"}, NotImplementedError),
+        ({"vmem_budget": 1 << 20}, NotImplementedError),
         ({"autotune": "measured"}, NotImplementedError),
         ({"kernel": "scan"}, NotImplementedError),
         ({"grid_order": "xy"}, ValueError),
@@ -116,6 +116,26 @@ class TestEngineOptions:
         with pytest.raises(exc):
             engines.create("streaming", nfa, dictionary=d, device="cpu",
                            **opts)
+
+    @pytest.mark.parametrize("opts", [{"fuse": False},
+                                      {"sparse_epilogue": "on"},
+                                      {"match_cap": 9, "ep_tile": 16}])
+    def test_sparse_and_parse_options_work(self, opts):
+        """Options ported with sparse delivery and device parse: the
+        dense verdicts do not change, and the sparse ones densify to
+        them."""
+        dtd, d, qs, nfa = workload(n_queries=24, seed=3)
+        bb = port_bytes(ragged_bb(dtd, d, 3))
+        eng = engines.create("streaming", nfa, dictionary=d, device="cpu",
+                             **opts)
+        plain = engines.create("streaming", nfa, dictionary=d, device="cpu")
+        want = plain.filter_bytes(bb)
+        assert want.matched.any()
+        assert_same(want, eng.filter_bytes(bb))
+        sp = eng.filter_bytes_sparse(bb)
+        assert sp.meta["match_cap"] == eng.match_cap(bb.batch_size,
+                                                     eng.n_queries)
+        assert_same(want, sp.densify())
 
     def test_unported_engine_name_raises(self):
         dtd, d, qs, nfa = workload(n_queries=4, seed=2)
