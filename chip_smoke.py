@@ -15,10 +15,12 @@ printed as it runs; any failure exits non-zero:
 2. every kernel against its plain PyTorch version on the card, at the
    full-width plan (10,000 profiles, 11 state blocks of 64 words) on short
    documents: K1 and K4 on an event batch, K2 and K3 on unpacked and on
-   packed segments with empty slots, K5 on the byte batch.  Lanes,
-   ordinals and predecoded bytes must be equal; the sparse kernels' rows
-   (whose order on the card is not fixed) as sorted sets, with exact
-   counts;
+   packed segments with empty slots, K5 on the byte batch; and K6 at the
+   levelwise plan (1,024 profiles, 3,712 states) at a wavefront step's
+   shape and at the widest level's shape of the first 1 MB request.
+   Lanes, ordinals, predecoded bytes and K6's states must be equal; the
+   sparse kernels' rows (whose order on the card is not fixed) as sorted
+   sets, with exact counts;
 3. the dense main path at full width: ``FilterStage(engine="streaming",
    batch_size=16).route_bytes`` over 4 requests of 16 documents of about
    1 MB (K2), then ``FilterStage.route`` over the same documents decoded
@@ -36,8 +38,19 @@ printed as it runs; any failure exits non-zero:
 5. times: each kernel (CUDA events, after a warm-up) and its plain
    version at the shapes its main path gives it, where their outputs must
    be equal too; the least time the card could take for the same work;
-   docs/s and MB/s end to end; device memory;
-6. one ``{"kernels": [...]}`` line, the card line, and the result line.
+   for K6 also ``torch.matmul`` of the same product in full float32, a
+   yardstick the port never calls; docs/s and MB/s end to end; device
+   memory;
+6. the levelwise engines at 1,024 profiles over the 1 MB documents:
+   ``FilterStage(engine="wavefront", engine_options={"use_kernel":
+   True}).route_bytes`` over 2 requests of 16 (K5, then K6 once per chunk
+   step), then ``engine="levelwise"`` with K6 over 1 request (K6 once per
+   level).  Each must route as ``FilterStage(engine="streaming")`` at the
+   same profiles (K2); on the first request so must the levelwise engine
+   with ``torch.matmul`` and with gather and compare, and the bool
+   wavefront, none of which launches K6.  Each request's time is split
+   into parse, host bucketing and K6;
+7. one ``{"kernels": [...]}`` line, the card line, and the result line.
 """
 from __future__ import annotations
 
@@ -66,10 +79,20 @@ SHORT_DOC_NODES = (60, 150, 300, 470)      # 1-8 KB documents
 # one that overflows, and one past the epilogue budget
 SPARSE_CAP, OVERFLOW_CAP, PAST_BUDGET_CAP = 7168, 64, 160_000
 
-# card peaks (H100 SXM data sheet): HBM bytes/s, and the 32-bit
-# non-tensor rate, which bounds the kernels' integer bit operations
+# the levelwise engines keep a dense (S, S) parent one-hot and K6 is a
+# W x S x S product, so their full width is the paper's section-4 profile
+# count (16-1,024 profiles of length 2/4/6), not the streaming plan's:
+# 1,024 profiles of length 6 (3,712 states), 2 requests of the 1 MB
+# documents through the wavefront engine and 1 through the levelwise
+LEVEL_PROFILES, LEVEL_REQUESTS, LEVEL_CHUNK = 1024, 2, 128
+
+# card peaks (H100 SXM data sheet): HBM bytes/s, the 32-bit non-tensor
+# rate, which bounds the kernels' integer bit operations and K6's float32
+# FFMA, and the dense bf16 tensor-core rate (K6's redesign target)
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12
+FP32_FLOP_PER_S = 67e12
+BF16_TENSOR_FLOP_PER_S = 989e12
 # operation counts of the least work the kernels' functions need: per
 # OPEN event, per state block, per packed word: 4 per parent bit the tag
 # can match (load, shift, mask, place) + 4 (tag mask, self-loop, or,
@@ -91,6 +114,8 @@ KERNELS = (  # id, name, source, replaced TPU kernel
      "src/repro/kernels/stream_filter.py:395 (stream_filter_pallas_sparse)"),
     ("K5", "predecode", "src/repro_torch/kernels/csrc/predecode.cu",
      "src/repro/kernels/predecode.py:57 (predecode_pallas)"),
+    ("K6", "nfa_transition", "src/repro_torch/kernels/csrc/nfa_transition.cu",
+     "src/repro/kernels/nfa_transition.py:43 (nfa_transition_pallas)"),
 )
 
 T0 = time.perf_counter()
@@ -149,16 +174,18 @@ def sparse_err(kernel_out, plain_out, what: str) -> int:
 
 
 def reset_counts() -> None:
+    from repro_torch.kernels import nfa_transition as nt
     from repro_torch.kernels import predecode as pd
     from repro_torch.kernels import stream_filter as sf
 
     for fn in (sf.stream_filter, sf.stream_filter_bytes,
                sf.stream_filter_sparse, sf.stream_filter_bytes_sparse,
-               pd.predecode):
+               pd.predecode, nt.nfa_transition):
         fn.launches = 0
 
 
 def counts() -> dict:
+    from repro_torch.kernels import nfa_transition as nt
     from repro_torch.kernels import predecode as pd
     from repro_torch.kernels import stream_filter as sf
 
@@ -166,7 +193,8 @@ def counts() -> dict:
             "K2": sf.stream_filter_bytes.launches,
             "K3": sf.stream_filter_bytes_sparse.launches,
             "K4": sf.stream_filter_sparse.launches,
-            "K5": pd.predecode.launches}
+            "K5": pd.predecode.launches,
+            "K6": nt.nfa_transition.launches}
 
 
 def drive(what: str, fn, want: set[str]):
@@ -212,6 +240,58 @@ def workload():
     qs = gen_profiles(dtd, n=N_PROFILES, length=PATH_LENGTH, p_desc=P_DESC,
                       p_wild=P_WILD, seed=0)
     return dtd, d, qs
+
+
+def level_profiles(dtd):
+    """The levelwise engines' profiles: the same generator at 1,024."""
+    from repro_torch.data.generator import gen_profiles
+
+    return gen_profiles(dtd, n=LEVEL_PROFILES, length=PATH_LENGTH,
+                        p_desc=P_DESC, p_wild=P_WILD, seed=0)
+
+
+def big_documents(dtd) -> list[bytes]:
+    """The 16 distinct documents of about 1 MB that phases 3 and 6 route."""
+    from repro_torch.core.events import encode_bytes
+    from repro_torch.data.generator import gen_document
+
+    t = time.perf_counter()
+    bufs = [encode_bytes(gen_document(dtd, target_nodes=DOC_NODES,
+                                      max_depth=DOC_DEPTH, seed=i),
+                         text_fill=TEXT_FILL) for i in range(DISTINCT_DOCS)]
+    say(f"{DISTINCT_DOCS} distinct documents of {min(map(len, bufs))}-"
+        f"{max(map(len, bufs))} bytes in {time.perf_counter() - t:.1f} s")
+    return bufs
+
+
+def request_payloads(bufs, requests: int) -> list[bytes]:
+    """``requests`` requests of BATCH documents, each taking the distinct
+    documents in another order."""
+    return [bufs[(i + 3 * r) % DISTINCT_DOCS]
+            for r in range(requests) for i in range(BATCH)]
+
+
+def level_layout(bufs, d) -> dict:
+    """K6's shapes on the first 1 MB request, from the host bucketing the
+    engines run: a wavefront step is BATCH x LEVEL_CHUNK rows, a levelwise
+    level BATCH x the widest level (every level is padded to it)."""
+    from repro_torch.core.engines import levelwise as lw
+    from repro_torch.core.events import EventBatch, decode_bytes
+
+    sym = d.symbol_value_table()
+    batch = EventBatch.from_streams(
+        [decode_bytes(b, sym) for b in request_payloads(bufs, 1)])
+    lds = lw._leveldocs_of_batch(batch)
+    widths = [int(w) for ld in lds for w in ld.valid.sum(1)]
+    levels, widest = lw._stack_leveldocs(lds).tags.shape[1:]
+    n_chunks = max(lw.chunkize_level(ld, LEVEL_CHUNK).n_chunks for ld in lds)
+    out = {"step_rows": BATCH * LEVEL_CHUNK, "levels": levels,
+           "widest": widest, "level_rows": BATCH * widest,
+           "chunks": n_chunks}
+    say(f"levelwise layout of the first request: {out['levels']} levels, "
+        f"level widths {min(widths)}-{max(widths)}, widest {out['widest']}; "
+        f"{n_chunks} chunks of {LEVEL_CHUNK} in the longest document")
+    return out
 
 
 def kernels_vs_plain(dtd, tables, lane_cls, dev) -> dict:
@@ -301,32 +381,60 @@ def kernels_vs_plain(dtd, tables, lane_cls, dev) -> dict:
     return errs
 
 
+def k6_inputs(plan, rows: int, seed: int, dev):
+    """K6's inputs at one shape: seeded 0/1 parent rows (2 % ones), tags in
+    [-1, T+2) (pads and tags past the tag space), and the plan's tables."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    t, s = plan["req"].shape
+    parent = torch.empty((rows, s), dtype=torch.float32,
+                         device=dev).bernoulli_(0.02, generator=g)
+    tags = torch.randint(-1, t + 2, (rows,), generator=g, device=dev,
+                         dtype=torch.int32)
+    return (parent, tags, plan["req"], plan["wild"], plan["parent_1h"],
+            plan["selfloop"])
+
+
+def k6_vs_plain(level_plan, layout, dev) -> float:
+    """Phase 2, K6: the kernel against its plain version at a wavefront
+    step's shape and at the widest level's, on the card."""
+    from repro_torch.kernels import nfa_transition as nt
+    from repro_torch.kernels import ref
+
+    err = 0.0
+    for label, rows in (("wavefront step", layout["step_rows"]),
+                        ("widest level", layout["level_rows"])):
+        args = k6_inputs(level_plan, rows, rows, dev)
+        k = nt.nfa_transition(*args)
+        p = ref.nfa_transition(*args)
+        torch.cuda.synchronize()
+        check(bool(p.any()) and not bool(p.all()),
+              f"K6 plain version at the {label} is constant")
+        e = float((k - p).abs().max())
+        say(f"K6 {label} ({rows}, {args[0].shape[1]}): max |kernel - plain| "
+            f"= {e}")
+        check(e == 0, f"K6 disagrees with its plain version at the {label}")
+        err = max(err, e)
+        del args, k, p
+        torch.cuda.empty_cache()
+    return err
+
+
 # ----------------------------------------------------------------- phase 3
 def routed(batches) -> list:
     return [(r.doc_index, r.shard, tuple(r.matched_profiles.tolist()))
             for batch in batches for r in batch]
 
 
-def main_path(dtd, d, qs, dev):
+def main_path(d, qs, bufs, dev):
     """Phase 3: the dense main path at full width, K2 then K1; then the
     first request's sparse call past the epilogue budget (K5, K1)."""
-    from repro_torch.core.events import (ByteBatch, EventBatch,
-                                         decode_bytes, encode_bytes)
+    from repro_torch.core.events import ByteBatch, EventBatch, decode_bytes
     from repro_torch.data.filter_stage import FilterStage
-    from repro_torch.data.generator import gen_document
 
     say(f"phase 3: main path, {REQUESTS} requests x {BATCH} documents")
-    t = time.perf_counter()
-    bufs = [encode_bytes(gen_document(dtd, target_nodes=DOC_NODES,
-                                      max_depth=DOC_DEPTH, seed=i),
-                         text_fill=TEXT_FILL) for i in range(DISTINCT_DOCS)]
-    # each request takes the distinct documents in another order
-    payloads = [bufs[(i + 3 * r) % DISTINCT_DOCS]
-                for r in range(REQUESTS) for i in range(BATCH)]
+    payloads = request_payloads(bufs, REQUESTS)
     n_bytes = sum(map(len, payloads))
-    say(f"{DISTINCT_DOCS} distinct documents of {min(map(len, bufs))}-"
-        f"{max(map(len, bufs))} bytes in {time.perf_counter() - t:.1f} s; "
-        f"{len(payloads)} payloads, {n_bytes} bytes")
+    say(f"{len(payloads)} payloads, {n_bytes} bytes")
 
     t = time.perf_counter()
     stage = FilterStage(profiles=qs, dictionary=d, engine="streaming",
@@ -510,9 +618,10 @@ def work_counts(tables, kind: np.ndarray, tag: np.ndarray) -> int:
     return int(hist @ per_tag) + OPS_PER_CLOSE * g * int((kind == CLOSE).sum())
 
 
-def bound(n_bytes: int, n_ops: int) -> tuple[float, str]:
+def bound(n_bytes: int, n_ops: int, ops_per_s: float = INT32_OPS_PER_S
+          ) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / INT32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -650,6 +759,143 @@ def times(run, short, tables, lane_cls, errs, dev) -> dict:
     return out
 
 
+def k6_times(level_plan, layout, errs, dev) -> dict:
+    """Phase 5, K6: kernel, plain version and ``torch.matmul`` of its
+    product (full float32, TF32 off; the port never calls it) at a
+    wavefront step's shape and at the widest level's."""
+    from repro_torch.kernels import nfa_transition as nt
+    from repro_torch.kernels import ref
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "torch.backends.cuda.matmul.allow_tf32 is on")
+    say("K6 times; torch.backends.cuda.matmul.allow_tf32 = False, "
+        f"float32 matmul precision {torch.get_float32_matmul_precision()!r}")
+    out = {}
+    for key, rows, reps in (("step", layout["step_rows"], 20),
+                            ("level", layout["level_rows"], 3)):
+        args = k6_inputs(level_plan, rows, rows + 1, dev)
+        ms, k_out = time_ms(lambda: nt.nfa_transition(*args), warmup=1,
+                            reps=reps)
+        plain_ms, p_out = time_ms(lambda: ref.nfa_transition(*args),
+                                  warmup=1, reps=max(1, reps // 3))
+        lib_ms, _ = time_ms(lambda: torch.matmul(args[0], args[4]),
+                            warmup=1, reps=reps)
+        errs["K6"] = max(errs["K6"], float((k_out - p_out).abs().max()))
+        check(errs["K6"] == 0, f"K6 disagrees with its plain version at "
+                               f"{tuple(args[0].shape)}")
+        w, s = args[0].shape
+        t = args[2].shape[0]
+        flop = 2 * w * s * s
+        # parent rows, one-hot, req, wild, selfloop and tags read, out written
+        n_bytes = 4 * (2 * w * s + s * s + t * s + 2 * s + w)
+        bound_ms, bound_by = bound(n_bytes, flop, FP32_FLOP_PER_S)
+        out[key] = {"rows": w, "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": lib_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by,
+                    "bf16_bound_ms": flop / BF16_TENSOR_FLOP_PER_S * 1e3}
+        say(f"K6 kernel ({w}, {s}) @ ({s}, {s}): {ms:.3f} ms = "
+            f"{flop / ms / 1e9:.1f} TFLOP/s; plain {plain_ms:.3f} ms; "
+            f"torch.matmul {lib_ms:.3f} ms; bound {bound_ms:.4f} ms "
+            f"({bound_by}, float32 non-tensor), bf16 tensor-core line "
+            f"{out[key]['bf16_bound_ms']:.4f} ms; max |kernel - plain| = 0")
+        del args, k_out, p_out
+        torch.cuda.empty_cache()
+    return out
+
+
+# ----------------------------------------------------------------- phase 6
+def level_phase(dtd, d, bufs, layout, k6, dev) -> dict:
+    """Phase 6: the levelwise engines at 1,024 profiles on 1 MB documents,
+    each routing held against the streaming stage's at the same plan."""
+    from repro_torch.core.events import ByteBatch
+    from repro_torch.data.filter_stage import FilterStage
+
+    qs = level_profiles(dtd)
+    payloads = request_payloads(bufs, LEVEL_REQUESTS)
+    say(f"phase 6: levelwise engines, {LEVEL_PROFILES} profiles, "
+        f"{LEVEL_REQUESTS} requests x {BATCH} documents")
+
+    def stage(engine, **opts):
+        return FilterStage(profiles=qs, dictionary=d, engine=engine,
+                           batch_size=BATCH, device=str(dev),
+                           engine_options=opts)
+
+    streaming = stage("streaming")
+    want, _ = drive(f"streaming route_bytes at {LEVEL_PROFILES} profiles",
+                    lambda: routed(streaming.route_bytes(payloads)), {"K2"})
+    want_first = [r for r in want if r[0] < BATCH]
+    check(0 < len({r[0] for r in want}), "no document matched at 1,024 "
+                                         "profiles")
+    say(f"streaming: {len(want)} routed documents, selectivity "
+        f"{streaming.throughput()['selectivity']:.6f}; plan "
+        f"{streaming._eng.plan_.meta['n_states']} states")
+
+    out = {}
+    for engine, requests, shape in (("wavefront", LEVEL_REQUESTS, "step"),
+                                    ("levelwise", 1, "level")):
+        st = stage(engine, use_kernel=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        got, launches = drive(
+            f"{engine} route_bytes use_kernel=True, {requests} request(s)",
+            lambda: routed(st.route_bytes(payloads[:requests * BATCH])),
+            {"K5", "K6"})
+        e2e_s = time.perf_counter() - t
+        mem = torch.cuda.max_memory_allocated()
+        check(got == (want if requests == LEVEL_REQUESTS else want_first),
+              f"{engine} with K6 routes differently from the streaming stage")
+        # every launch has the shape phase 5 timed: one per chunk step or
+        # one per level, of the first request's layout
+        steps = layout["chunks"] if engine == "wavefront" else layout["levels"]
+        check(launches["K6"] == requests * steps,
+              f"{engine} launched K6 {launches['K6']} times, not "
+              f"{requests} x {steps}")
+        # the first request's parse and host bucketing, alone
+        eng = st._eng
+        bb = ByteBatch.from_buffers(payloads[:BATCH], bucket=st.byte_bucket)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = eng._parse(bb, st.bucket)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        prep = eng._prep(batch)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        del batch, prep
+        torch.cuda.empty_cache()
+        per_request = {
+            "route_s": e2e_s / requests, "parse_s": t1 - t0,
+            "bucket_s": t2 - t1,
+            "k6_s": launches["K6"] / requests * k6[shape]["ms"] / 1e3}
+        out[engine] = {"requests": requests, "e2e_s": e2e_s,
+                       "launches": launches, "peak_bytes": mem,
+                       "per_request": per_request}
+        say(f"{engine} with K6 routes as the streaming stage: "
+            f"{requests * BATCH / e2e_s:.2f} docs/s; per request "
+            f"{per_request['route_s']:.3f} s = parse "
+            f"{per_request['parse_s']:.3f} s + host bucketing "
+            f"{per_request['bucket_s']:.3f} s + K6 "
+            f"{per_request['k6_s']:.3f} s ({launches['K6'] // requests} "
+            f"launches x {k6[shape]['ms']:.3f} ms) + the rest; peak device "
+            f"memory {mem} bytes")
+
+    # the first request through the modes that launch no K6
+    for engine, opts in (("levelwise", {}), ("levelwise", {"use_matmul": False}),
+                         ("wavefront", {})):
+        st = stage(engine, **opts)
+        t = time.perf_counter()
+        got, _ = drive(f"{engine} {opts or 'defaults'} route_bytes, first "
+                       f"request", lambda: routed(st.route_bytes(
+                           payloads[:BATCH])), {"K5"})
+        check(got == want_first, f"{engine} {opts} routes differently from "
+                                 f"the streaming stage")
+        say(f"{engine} {opts or 'defaults'}: routes as the streaming stage "
+            f"in {time.perf_counter() - t:.3f} s")
+        torch.cuda.empty_cache()
+    return out
+
+
 # ------------------------------------------------------------------- main
 def main() -> int:
     if not torch.cuda.is_available():
@@ -669,14 +915,24 @@ def main() -> int:
     lane_cls = eng._plain_lane_tables(eng.plan_)[0]
     say(f"{int(lane_cls.max()) + 1} accept classes over "
         f"{tuple(lane_cls.shape)} lanes")
+    bufs = big_documents(dtd)
+    layout = level_layout(bufs, d)
+    level_plan = create("wavefront", compile_queries(
+        level_profiles(dtd), d, shared=True), dictionary=d, device=dev,
+        use_kernel=True).plan_
+    say(f"levelwise plan at {LEVEL_PROFILES} profiles: {level_plan.meta}")
     errs = kernels_vs_plain(dtd, tables, lane_cls, dev)
-    run = main_path(dtd, d, qs, dev)
+    errs["K6"] = k6_vs_plain(level_plan, layout, dev)
+    run = main_path(d, qs, bufs, dev)
     short = sparse_phase(dtd, d, qs, dev)
     t = times(run, short, tables, lane_cls, errs, dev)
+    k6 = k6_times(level_plan, layout, errs, dev)
+    del level_plan
+    levels = level_phase(dtd, d, bufs, layout, k6, dev)
 
     s = run["stats"]
     card = card_line()
-    say(f"phase 6: end to end on {card}: {len(run['payloads'])} documents, "
+    say(f"phase 7: end to end on {card}: {len(run['payloads'])} documents, "
         f"{run['n_bytes']} bytes in {run['e2e_s']:.3f} s = "
         f"{len(run['payloads']) / run['e2e_s']:.1f} docs/s, "
         f"{run['n_bytes'] / run['e2e_s'] / 1e6:.1f} MB/s (host clock around "
@@ -685,9 +941,18 @@ def main() -> int:
         f"sparse short messages {short['n_docs'] / short['e2e_s']:.1f} "
         f"docs/s, {short['stats']['device_rows']} device rows, "
         f"{short['stats']['verdict_bytes']} verdict bytes (dense "
-        f"{short['dense_verdict_bytes']})")
+        f"{short['dense_verdict_bytes']}); levelwise engines at "
+        f"{LEVEL_PROFILES} profiles: " + "; ".join(
+            f"{e} {v['requests'] * BATCH / v['e2e_s']:.2f} docs/s"
+            for e, v in levels.items()))
     launches = {**run["launches"], "K3": short["launches"]["K3"],
-                "K4": short["launches"]["K4"]}
+                "K4": short["launches"]["K4"],
+                # K6 on both engines' runs; its times are at a wavefront
+                # step's shape, the shape of all but a dozen launches
+                "K6": sum(v["launches"]["K6"] for v in levels.values())}
+    step = k6["step"]
+    t["K6"] = (step["ms"], step["plain_ms"], step["bound_ms"],
+               step["bound_by"])
     rows = []
     for key, name, source, replaces in KERNELS:
         ms, plain_ms, bound_ms, bound_by = t[key]
@@ -695,7 +960,8 @@ def main() -> int:
             "name": f"{key} {name}", "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[key],
             "max_abs_err": errs[key], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": step["library_ms"] if key == "K6" else None})
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,16 @@
-"""Carry a streaming plan's numpy tables into a port :class:`FilterPlan`.
+"""Carry a plan's numpy tables into a port :class:`FilterPlan`.
 
-:func:`plan_from_numpy` takes the block tables of a streaming plan as
-numpy arrays — the port's own (``StreamingEngine.plan``) or those of a
-JAX ``FilterPlan`` after ``np.asarray`` — and places them on a device, so
-the port can run on exactly the tables another build produced.  Only the
-``kb_*`` block tables are read; a plan without them (a scan-only plan)
-is refused.
+Each function takes one engine family's tables as numpy arrays — the
+port's own, or those of a JAX ``FilterPlan`` after ``np.asarray`` — checks
+their shapes and indices, and places them on a device, so the port can
+run on exactly the tables another build produced:
+
+* :func:`plan_from_numpy` — a streaming plan's ``kb_*`` block tables (a
+  plan without them, a scan-only plan, is refused);
+* :func:`level_plan_from_numpy` — a levelwise or wavefront plan's dense
+  tables (:data:`LEVEL_TABLES`), which K6 reads;
+* :func:`matscan_plan_from_numpy` — a matscan plan's ``step_tags`` and
+  ``accept_idx``.
 """
 from __future__ import annotations
 
@@ -74,3 +79,91 @@ def plan_from_numpy(tables: Mapping[str, Any], meta: Mapping[str, Any],
     keep = {k: meta[k] for k in META_KEYS if k in meta}
     keep["max_depth"] = int(meta["max_depth"])
     return FilterPlan("streaming", placed, keep)
+
+
+#: the dense tables of a levelwise-family plan, and their dtypes
+LEVEL_TABLES = {"in_state": np.int32, "in_tag": np.int32,
+                "selfloop": np.float32, "init": np.float32,
+                "accept_state": np.int32, "req": np.float32,
+                "wild": np.float32, "parent_1h": np.float32}
+LEVEL_META = ("n_states", "n_tags", "state_multiple", "prep")
+
+
+def _place(tables: Mapping[str, Any], dtypes: Mapping[str, Any]
+           ) -> dict[str, np.ndarray]:
+    missing = [k for k in dtypes if k not in tables]
+    if missing:
+        raise ValueError(f"plan has no tables {missing}")
+    out = {}
+    for k, dtype in dtypes.items():
+        x = np.asarray(tables[k])
+        if np.dtype(dtype).kind == "i":
+            out[k] = _as_int32(x)
+        elif x.dtype.kind not in "fb":
+            raise ValueError(f"{k} of dtype {x.dtype} is not a float table")
+        else:
+            out[k] = np.ascontiguousarray(x, dtype=dtype)
+    return out
+
+
+def level_plan_from_numpy(engine: str, tables: Mapping[str, Any],
+                          meta: Mapping[str, Any],
+                          device: str | torch.device) -> FilterPlan:
+    """Levelwise-family tables (numpy) → port plan of ``engine`` on
+    ``device``.
+
+    ``in_state``/``in_tag``/``selfloop``/``init``/``wild`` are (S,),
+    ``accept_state`` (Q,), ``req`` (T, S) and ``parent_1h`` (S, S); S and
+    T must equal ``meta["n_states"]`` and ``meta["n_tags"]``, and every
+    state index must lie in [0, S), before anything reaches K6.
+    """
+    if engine not in ("levelwise", "wavefront"):
+        raise ValueError(f"{engine!r} is not a levelwise-family engine")
+    for k in ("n_states", "n_tags"):
+        if k not in meta:
+            raise ValueError(f"plan meta has no {k}")
+    arrays = _place(tables, LEVEL_TABLES)
+    s, t = int(meta["n_states"]), int(meta["n_tags"])
+    if arrays["accept_state"].ndim != 1:
+        raise ValueError("accept_state must be (Q,)")
+    q = arrays["accept_state"].shape[0]
+    want = {"in_state": (s,), "in_tag": (s,), "selfloop": (s,),
+            "init": (s,), "wild": (s,), "accept_state": (q,),
+            "req": (t, s), "parent_1h": (s, s)}
+    for k, shape in want.items():
+        if arrays[k].shape != shape:
+            raise ValueError(f"{k} has shape {arrays[k].shape}, expected "
+                             f"{shape}")
+    for k in ("in_state", "accept_state"):
+        x = arrays[k]
+        if x.size and (x.min() < 0 or x.max() >= s):
+            raise ValueError(f"{k} holds states outside [0, {s})")
+    dev = torch.device(device)
+    placed = {k: torch.from_numpy(v.copy()).to(dev)
+              for k, v in arrays.items()}
+    keep = {k: meta[k] for k in LEVEL_META if k in meta}
+    keep.update(n_states=s, n_tags=t)
+    return FilterPlan(engine, placed, keep)
+
+
+def matscan_plan_from_numpy(tables: Mapping[str, Any],
+                            meta: Mapping[str, Any],
+                            device: str | torch.device) -> FilterPlan:
+    """Matscan tables (numpy) → port plan on ``device``: ``step_tags``
+    (Q, kmax) int32 and ``accept_idx`` (Q,) int32 in [0, kmax]."""
+    arrays = _place(tables, {"step_tags": np.int32, "accept_idx": np.int32})
+    st, acc = arrays["step_tags"], arrays["accept_idx"]
+    if st.ndim != 2 or acc.shape != (st.shape[0],):
+        raise ValueError(f"step_tags {st.shape} and accept_idx {acc.shape} "
+                         f"must be (Q, kmax) and (Q,)")
+    kmax = st.shape[1]
+    if int(meta.get("kmax", kmax)) != kmax:
+        raise ValueError(f"meta kmax {meta['kmax']} != step_tags width {kmax}")
+    if acc.size and (acc.min() < 0 or acc.max() > kmax):
+        raise ValueError(f"accept_idx holds indices outside [0, {kmax}]")
+    dev = torch.device(device)
+    placed = {k: torch.from_numpy(v.copy()).to(dev)
+              for k, v in arrays.items()}
+    return FilterPlan("matscan", placed,
+                      {"kmax": kmax, "n_queries": st.shape[0],
+                       "prep": meta.get("prep", "events-device")})

@@ -4,14 +4,19 @@ Counterpart of ``src/repro/core/engines/base.py`` (lines 64-90, 122-175,
 624-728, 890-944, 1005-1086, 1139-1149, 1213-1224, 1404-1474), for
 engines whose compiled tables are torch tensors on one device:
 
-* :class:`FilterPlan` — a frozen dict of tensors on one device plus
-  static metadata, built once per profile set by :meth:`FilterEngine.plan`.
+* :class:`FilterPlan` — a frozen dict of tables plus static metadata,
+  built once per profile set by :meth:`FilterEngine.plan`: tensors on one
+  device for the device engines, host structures (or nothing) for the
+  host engines.
 * :class:`FilterEngine` — compile once, then ``filter_batch`` (events)
   and ``filter_bytes`` (raw wire bytes) into ``(B, Q)`` results, or
   ``filter_batch_sparse`` / ``filter_bytes_sparse`` into bounded match
-  lists (:class:`SparseResult`).  Every entry point runs on ``device``
-  (``"cuda"`` unless the caller asks for ``"cpu"``, where the kernels'
-  plain versions run).
+  lists (:class:`SparseResult`).  Device engines split a call into a
+  plan-independent ``_prep`` of the batch and a ``_run_with_plan`` against
+  an explicit plan (``filter_batch_with_plan``); host engines
+  (``device_sharded = False``) loop documents in Python.  Every entry
+  point runs on ``device`` (``"cuda"`` unless the caller asks for
+  ``"cpu"``, where the kernels' plain versions run).
 * the registry — the port's own :func:`register` / :func:`create` /
   :func:`names`, separate from the JAX package's.
 """
@@ -24,7 +29,7 @@ import numpy as np
 import torch
 
 from ...kernels.ref import compact_rows
-from ..events import DEFAULT_MAX_DEPTH, ByteBatch, EventBatch
+from ..events import DEFAULT_MAX_DEPTH, ByteBatch, EventBatch, EventStream
 from ..nfa import NFA
 from .result import NO_MATCH, FilterResult, SparseResult
 
@@ -76,20 +81,32 @@ NOT_PORTED = {
     "vmem_budget": "queue 1 item 11 (H100 launch-shape policy)",
     "smem_budget": "queue 1 item 11 (H100 launch-shape policy)",
     "autotune": "queue 1 item 11 (measured autotune)",
-    "kernel": "queue 1 item 9 (one execution path per engine so far)",
+    "kernel": "nothing: the streaming engine has one path per device, its "
+              "CUDA kernels on the card and their plain versions on the "
+              "CPU, so there is no scan or Pallas mode to pick",
     "kernel_interpret": "nothing: Pallas interpret mode has no CUDA twin",
 }
 
 
 # ----------------------------------------------------------------- the plan
 class FilterPlan:
-    """Frozen plan: named tensors on one device + static metadata."""
+    """Frozen plan: named tables + static metadata.
+
+    A device engine's tables are tensors on one device, which is the
+    plan's ``device``.  A host engine's plan may hold host structures or
+    no tables at all (``tables={}``); its ``device`` is the one passed,
+    else the CPU.
+    """
 
     __slots__ = ("engine", "device", "_tables", "_meta")
 
-    def __init__(self, engine: str, tables: Mapping[str, torch.Tensor],
-                 meta: Mapping[str, Any] | None = None) -> None:
-        devices = {t.device for t in tables.values()}
+    def __init__(self, engine: str, tables: Mapping[str, Any],
+                 meta: Mapping[str, Any] | None = None, *,
+                 device: str | torch.device | None = None) -> None:
+        devices = {t.device for t in tables.values()
+                   if isinstance(t, torch.Tensor)}
+        if device is not None:
+            devices.add(torch.device(device))
         if len(devices) > 1:
             raise ValueError(f"plan tables span devices {sorted(map(str, devices))}")
         object.__setattr__(self, "engine", engine)
@@ -102,14 +119,14 @@ class FilterPlan:
         raise AttributeError("FilterPlan is frozen")
 
     @property
-    def tables(self) -> dict[str, torch.Tensor]:
+    def tables(self) -> dict[str, Any]:
         return dict(self._tables)
 
     @property
     def meta(self) -> dict[str, Any]:
         return dict(self._meta)
 
-    def __getitem__(self, name: str) -> torch.Tensor:
+    def __getitem__(self, name: str) -> Any:
         return self._tables[name]
 
     def __repr__(self) -> str:  # pragma: no cover
@@ -124,8 +141,14 @@ class FilterEngine(abc.ABC):
     #: registry key, set by the :func:`register` decorator
     name: ClassVar[str] = ""
 
-    #: state-axis pad multiple of this engine's plan tables
+    #: state-axis pad multiple of this engine's plan tables; the
+    #: ``state_multiple=`` option overrides it per instance
     state_multiple: ClassVar[int] = 1
+
+    #: True for engines that run a batch as one device program
+    #: (:meth:`_prep` then :meth:`_run_with_plan`); False for host engines,
+    #: which loop documents in Python
+    device_sharded: ClassVar[bool] = False
 
     def __init__(self, nfa: NFA, dictionary=None, *,
                  device: str | torch.device = "cuda", **options: Any) -> None:
@@ -134,6 +157,8 @@ class FilterEngine(abc.ABC):
                 raise NotImplementedError(
                     f"engine option {key}= is not ported yet: "
                     f"{NOT_PORTED[key]}")
+        if "state_multiple" in options:
+            self.state_multiple = int(options.pop("state_multiple"))
         self.dictionary = dictionary
         self.device = torch.device(device)
         self.nfa = nfa
@@ -150,11 +175,33 @@ class FilterEngine(abc.ABC):
     def filter_batch(self, batch: EventBatch) -> FilterResult:
         """Filter a document batch; returns a ``(B, Q)`` result."""
 
-    @abc.abstractmethod
     def device_verdicts(self, batch: EventBatch
                         ) -> tuple[torch.Tensor, torch.Tensor]:
         """``(B, Q)`` matched (bool) and first (int32) tensors of a batch,
         left on the device (what :meth:`filter_batch` brings back)."""
+        return self._run_with_plan(self.plan_, self._prep(batch))
+
+    # ------------------------------------------------- explicit-plan filter
+    def _prep(self, batch: EventBatch) -> tuple:
+        """Plan-independent document-side preparation (device engines):
+        whatever :meth:`_run_with_plan` consumes — event tensors, level
+        buckets, chunk layouts — on this engine's device."""
+        raise NotImplementedError(
+            f"{self.name}: no device prep (host engine)")
+
+    def _run_with_plan(self, plan: FilterPlan, prep: tuple
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Explicit plan + prepped batch → ``(B, Q)`` matched and first,
+        on the device."""
+        raise NotImplementedError(
+            f"{self.name}: no device run (host engine)")
+
+    def filter_batch_with_plan(self, plan: FilterPlan,
+                               batch: EventBatch) -> FilterResult:
+        """:meth:`filter_batch` against an explicit plan (any compiled
+        profile set, not just ``self.plan_``)."""
+        matched, first = self._run_with_plan(plan, self._prep(batch))
+        return FilterResult(matched.cpu().numpy(), first.cpu().numpy())
 
     def filter_bytes(self, bb: ByteBatch, *,
                      bucket: int | None = None) -> FilterResult:
@@ -231,7 +278,13 @@ class FilterEngine(abc.ABC):
         compacted on the device (:func:`_compact_matches`), and the host
         reads a bounded ``(doc, query, first)`` list instead of the
         ``(B, Q)`` bitmap (``path="device-compact"``).
-        :meth:`SparseResult.densify` gives back :meth:`filter_batch`."""
+        :meth:`SparseResult.densify` gives back :meth:`filter_batch`.
+        Host engines sparsify their dense result (``path="dense-host"``):
+        they have no device transfer to save."""
+        if not self.device_sharded:
+            sp = self.filter_batch(batch).sparsify()
+            sp.meta["path"] = "dense-host"
+            return sp
         matched, first = self.device_verdicts(batch)
         b, q = batch.batch_size, int(matched.shape[-1])
         cap = self.match_cap(b, q, match_cap)
@@ -252,6 +305,14 @@ class FilterEngine(abc.ABC):
         ``max_depth``), then :meth:`filter_batch_sparse`."""
         return self.filter_batch_sparse(self._parse(bb, bucket),
                                         match_cap=match_cap)
+
+    # --------------------------------------------------------- conveniences
+    def filter_document(self, ev: EventStream) -> FilterResult:
+        """Single-document convenience on top of :meth:`filter_batch`."""
+        return self.filter_batch(EventBatch.from_streams([ev]))[0]
+
+    def filter_documents(self, docs) -> FilterResult:
+        return self.filter_batch(EventBatch.from_streams(list(docs)))
 
     def to_device(self, array: np.ndarray) -> torch.Tensor:
         """Stage a host array on this engine's device.
@@ -315,8 +376,8 @@ def get(name: str) -> type[FilterEngine]:
         return _REGISTRY[name]
     except KeyError:
         raise ValueError(
-            f"engine {name!r} is not ported (ROADMAP queue 1 item 9); "
-            f"ported: {sorted(_REGISTRY)}") from None
+            f"unknown engine {name!r}; registered: {sorted(_REGISTRY)} "
+            f"(every engine of the JAX package)") from None
 
 
 def create(name: str, nfa: NFA, dictionary=None,

@@ -127,6 +127,7 @@ class StreamingEngine(base.FilterEngine):
 
     #: packed-word layout: the state axis must tile into 32-bit words
     state_multiple = 32
+    device_sharded = True
 
     def __init__(self, nfa: NFA, dictionary=None,
                  max_depth: int = DEFAULT_MAX_DEPTH, *,

@@ -319,6 +319,16 @@ class EventBatch:
             self.n_events,
         )
 
+    # ------------------------------------------------------------ recovery
+    def stream(self, i: int) -> "EventStream":
+        """Document ``i`` of a host batch as an un-padded :class:`EventStream`."""
+        m = int(self.n_events[i])
+        return EventStream(self.kind[i, :m].copy(), self.tag_id[i, :m].copy())
+
+    def streams(self) -> Iterator["EventStream"]:
+        for i in range(self.batch_size):
+            yield self.stream(i)
+
     # ------------------------------------------------------------- metrics
     def nbytes(self, text_fill: int = 0) -> np.ndarray:
         """(B,) byte sizes in the paper's wire format (for MB/s stats)."""

@@ -54,6 +54,12 @@ SIGNATURES = {
         # data, rows, L, kind, tag, stream
         "pd_predecode": ([_P, _I, _I, _P, _P, _P], ctypes.c_int),
     },
+    "nfa_transition": {
+        # parent_rows, W, S, tags, req, T, wild, parent_1h, selfloop, out,
+        # stream
+        "nt_transition": ([_P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P],
+                          ctypes.c_int),
+    },
 }
 SOURCES = tuple(CSRC / f"{name}.cu" for name in SIGNATURES)
 

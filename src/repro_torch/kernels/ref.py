@@ -1,11 +1,12 @@
-"""Plain PyTorch versions of the streaming filter's arithmetic.
+"""Plain PyTorch versions of the kernels' arithmetic.
 
 Counterpart of ``src/repro/kernels/ref.py``: the byte classifier of the
 character pre-decoder, the per-event step of the bit-packed streaming
-filter and the sparse epilogue, written with tensor ops only.  They are
-the CPU path of the kernel wrappers in :mod:`.stream_filter` and
-:mod:`.predecode` and the yardstick the CUDA kernels are held against on
-the card; they are not fast.
+filter, the sparse epilogue and the levelwise NFA transition, written
+with tensor ops only.  They are the CPU path of the kernel wrappers in
+:mod:`.stream_filter`, :mod:`.predecode` and :mod:`.nfa_transition` and
+the yardstick the CUDA kernels are held against on the card; they are
+not fast.
 
 Packed state words are ``torch.int32`` bit views of ``uint32`` words:
 shifts are arithmetic on int32, so every extracted bit is masked with
@@ -197,3 +198,34 @@ def sparse_epilogue(matched: torch.Tensor, first: torch.Tensor,
     cols, count = compact_rows(hits, (doc, cls, first), (-1, -1, NO_MATCH),
                                cap)
     return torch.stack(cols, 1), count.reshape(1)
+
+
+def tag_rows(tags: torch.Tensor, req: torch.Tensor) -> torch.Tensor:
+    """``onehot(tags) @ req`` as a row gather: row ``tags[i]`` of the (T, S)
+    table, or a zero row for a tag ``< 0`` or ``>= T``, as
+    ``jax.nn.one_hot`` gives."""
+    known = (tags >= 0) & (tags < req.shape[0])
+    if req.shape[0] == 0:
+        return req.new_zeros((tags.shape[0], req.shape[1]))
+    rows = req[torch.where(known, tags, 0).long()]
+    return torch.where(known[:, None], rows, torch.zeros_like(rows))
+
+
+def nfa_transition(parent_rows: torch.Tensor, tags: torch.Tensor,
+                   req: torch.Tensor, wild: torch.Tensor,
+                   parent_1h: torch.Tensor, selfloop: torch.Tensor
+                   ) -> torch.Tensor:
+    """Levelwise NFA transition: one document level, W nodes, S states.
+
+    The plain version of K6 (JAX ``ref.nfa_transition``).  parent_rows
+    (W, S) float32 0/1, the active sets of each node's parent; tags (W,)
+    int32, -1 for a padding row; req (T, S), wild (S,), parent_1h (S, S),
+    selfloop (S,) float32.  ``onehot(tags) @ req`` is :func:`tag_rows`,
+    so a tag past the tag space still matches the wildcard states; only
+    ``tags < 0`` masks a row out.  Returns (W, S) float32 0/1.
+    """
+    tagmatch = tag_rows(tags, req) + wild[None, :]
+    src = parent_rows @ parent_1h
+    nxt = torch.clamp(src * tagmatch + parent_rows * selfloop[None, :],
+                      max=1.0)
+    return nxt * (tags >= 0)[:, None].to(nxt.dtype)

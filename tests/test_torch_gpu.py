@@ -7,7 +7,8 @@ machine with an H100 and the CUDA toolkit::
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py -q
 
 The first test builds the kernels (``build/repro_torch/``).  Outputs are
-0/1 lanes, int32 ordinals and int32 match rows: exact equality, with the
+0/1 lanes, int32 ordinals, int32 match rows and K6's float32 0/1 states
+(sums of 0/1 products, exact in any order): exact equality, with the
 sparse kernels' rows compared as sorted sets (their order on the card is
 not fixed) and their counts exactly.  The file imports nothing of JAX, so
 it runs where only the port is installed.
@@ -252,3 +253,85 @@ def test_engine_sparse_and_parse_on_card_equal_cpu(cuda):
     pg = pg.to_host()
     for f in ("kind", "tag_id", "depth", "parent", "valid", "n_events"):
         np.testing.assert_array_equal(getattr(pg, f), getattr(pc, f))
+
+
+# ------------------------------------------------------------------- K6
+def transition_inputs(nfa, w, seed, density=0.2):
+    """Random 0/1 parent rows and tags in [-1, T+2) over an NFA's tables,
+    all on the CPU (float32 and int32, contiguous)."""
+    rng = np.random.default_rng(seed)
+    s = nfa.n_states
+    parent = (rng.random((w, s)) < density).astype(np.float32)
+    tags = rng.integers(-1, nfa.n_tags + 2, size=w).astype(np.int32)
+    tables = (nfa.req_matrix(), nfa.wild_vector(), nfa.parent_onehot(),
+              nfa.tables.selfloop.astype(np.float32))
+    return tuple(torch.from_numpy(np.ascontiguousarray(x))
+                 for x in (parent, tags) + tables)
+
+
+@pytest.mark.parametrize("w,multiple", [(1, 1), (63, 1), (65, 7), (130, 128),
+                                        (200, 64)])
+def test_nfa_transition_kernel_equals_plain(cuda, w, multiple):
+    """Ragged W and S (states padded to 1, 7, 64 or 128), tags past the
+    tag space and -1 pads: exact equality with the plain version."""
+    from repro_torch.core.nfa import pad_states
+    from repro_torch.kernels import nfa_transition as nt
+
+    dtd, d, nfa = workload(40, seed=9)
+    nfa = pad_states(nfa, multiple)
+    args = transition_inputs(nfa, w, seed=w)
+    before = nt.nfa_transition.launches
+    got = nt.nfa_transition(*(x.to(cuda) for x in args))
+    torch.cuda.synchronize()
+    assert nt.nfa_transition.launches == before + 1
+    want = nt.nfa_transition(*args)
+    assert want.any() and (want == 0).any()
+    assert torch.equal(got.cpu(), want)
+
+
+def test_nfa_transition_kernel_full_width_plan(cuda):
+    """The 1,024-profile plan of chip_smoke (3,712 states) at a wavefront
+    step's 2,048 rows, against the plain version on the card in full
+    float32 (no TF32)."""
+    from repro_torch.core.nfa import pad_states
+    from repro_torch.kernels import nfa_transition as nt
+    from repro_torch.kernels import ref
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    dtd = DTD.generate(n_tags=128, fanout=4, seed=0)
+    d = TagDictionary()
+    dtd.register(d)
+    qs = gen_profiles(dtd, n=1024, length=6, p_desc=0.3, p_wild=0.1, seed=0)
+    nfa = pad_states(compile_queries(qs, d, shared=True), 128)
+    assert nfa.n_states == 3712
+    args = [x.to(cuda) for x in transition_inputs(nfa, 2048, seed=1,
+                                                  density=0.01)]
+    got = nt.nfa_transition(*args)
+    want = ref.nfa_transition(*args)
+    torch.cuda.synchronize()
+    assert want.any()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name,opts", [
+    ("levelwise", {"use_kernel": True}),
+    ("wavefront", {"use_kernel": True, "chunk": 16}),
+    ("wavefront", {"use_kernel": True}),
+])
+def test_level_engines_with_kernel_on_card_equal_cpu(cuda, name, opts):
+    from repro_torch.kernels import nfa_transition as nt
+
+    dtd, d, nfa = workload(120, seed=10)
+    docs = gen_corpus(dtd, n_docs=5, nodes_per_doc=150, seed=10)
+    batch = EventBatch.from_streams(docs, bucket=64)
+    bb = ByteBatch.from_streams(docs, text_fill=8, bucket=1024)
+    cpu = engines.create(name, nfa, dictionary=d, device="cpu", **opts)
+    gpu = engines.create(name, nfa, dictionary=d, device=cuda, **opts)
+    before = nt.nfa_transition.launches
+    pairs = ((cpu.filter_batch(batch), gpu.filter_batch(batch)),
+             (cpu.filter_bytes(bb), gpu.filter_bytes(bb)))
+    assert nt.nfa_transition.launches > before
+    assert pairs[0][0].matched.any()
+    for a, b in pairs:
+        np.testing.assert_array_equal(b.matched, a.matched)
+        np.testing.assert_array_equal(b.first_event, a.first_event)

@@ -138,12 +138,14 @@ class TestEngineOptions:
         assert_same(want, sp.densify())
 
     def test_unported_engine_name_raises(self):
+        """Every engine of the JAX package is registered now; a name
+        outside the registry raises, naming the registered ones."""
         dtd, d, qs, nfa = workload(n_queries=4, seed=2)
-        assert engines.names() == ("streaming",)
-        with pytest.raises(ValueError, match="not ported"):
-            engines.create("levelwise", nfa, dictionary=d, device="cpu")
-        with pytest.raises(ValueError, match="not ported"):
-            FilterStage(profiles=list(qs), dictionary=d, engine="yfilter",
+        assert engines.names() == jax_engines.names()
+        with pytest.raises(ValueError, match="unknown engine 'nosuch'"):
+            engines.create("nosuch", nfa, dictionary=d, device="cpu")
+        with pytest.raises(ValueError, match="registered: .*'yfilter'"):
+            FilterStage(profiles=list(qs), dictionary=d, engine="nosuch",
                         device="cpu")
 
     def test_grid_order_is_kept_in_meta_and_changes_nothing(self):
