@@ -17,7 +17,9 @@ printed as it runs; any failure exits non-zero:
    documents: K1 and K4 on an event batch, K2 and K3 on unpacked and on
    packed segments with empty slots, K5 on the byte batch; and K6 at the
    levelwise plan (1,024 profiles, 3,712 states) at a wavefront step's
-   shape and at the widest level's shape of the first 1 MB request.
+   shape and at the widest level's shape of the first 1 MB request, given
+   the parent as ``parent_idx``, against its plain version (the gather)
+   and against ``ref.nfa_transition`` (the product by the parent one-hot).
    Lanes, ordinals, predecoded bytes and K6's states must be equal; the
    sparse kernels' rows (whose order on the card is not fixed) as sorted
    sets, with exact counts;
@@ -35,11 +37,16 @@ printed as it runs; any failure exits non-zero:
    the fused path with no overflow; with ``match_cap=64`` each overflows
    to the dense kernels (K3 then K2, K4 then K1).  Every route must equal
    the dense stage's;
-5. times: each kernel (CUDA events, after a warm-up) and its plain
-   version at the shapes its main path gives it, where their outputs must
-   be equal too; the least time the card could take for the same work;
-   for K6 also ``torch.matmul`` of the same product in full float32, a
-   yardstick the port never calls; docs/s and MB/s end to end; device
+5. times: each kernel (CUDA events, after a warm-up; K6 from a CUDA
+   graph of launches, since a wavefront step's kernel is shorter than its
+   launch) and its plain version at the shapes its main path gives it,
+   where their outputs must be equal too; the least time the card could
+   take for the same work; K2's split (the same bytes with no tag: the
+   front end alone; K1 on the same documents: the chain alone) and every
+   chain kernel's time an event of its longest chain; for K6 also
+   ``torch.index_select`` of the parents' values and ``torch.matmul`` by
+   the parent one-hot in full float32, yardsticks the port never calls,
+   and K6 must beat the product; docs/s and MB/s end to end; device
    memory;
 6. the levelwise engines at 1,024 profiles over the 1 MB documents:
    ``FilterStage(engine="wavefront", engine_options={"use_kernel":
@@ -88,11 +95,15 @@ LEVEL_PROFILES, LEVEL_REQUESTS, LEVEL_CHUNK = 1024, 2, 128
 
 # card peaks (H100 SXM data sheet): HBM bytes/s, the 32-bit non-tensor
 # rate, which bounds the kernels' integer bit operations and K6's float32
-# FFMA, and the dense bf16 tensor-core rate (K6's redesign target)
+# arithmetic, and the dense bf16 tensor-core rate (the line a tensor-core
+# form of the TPU kernel's product would have had, kept as history)
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12
 FP32_FLOP_PER_S = 67e12
 BF16_TENSOR_FLOP_PER_S = 989e12
+# K6 per output: the parent select, the tag-match add, two products, the
+# clamp (the valid mask folds into the last)
+K6_OPS_PER_OUTPUT = 5
 # operation counts of the least work the kernels' functions need: per
 # OPEN event, per state block, per packed word: 4 per parent bit the tag
 # can match (load, shift, mask, place) + 4 (tag mask, self-loop, or,
@@ -150,6 +161,29 @@ def time_ms(fn, *, warmup: int, reps: int):
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / reps, out
+
+
+def graph_ms(fn, *, reps: int) -> float:
+    """Mean device time of ``fn()`` in ms with no host time between calls:
+    ``reps`` calls captured in one CUDA graph, replayed between CUDA
+    events.  For kernels shorter than the host's time to launch them."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    stop.record()
+    stop.synchronize()
+    ms = start.elapsed_time(stop) / reps
+    del graph
+    return ms
 
 
 def max_abs_err(kernel_out, plain_out) -> int:
@@ -383,38 +417,52 @@ def kernels_vs_plain(dtd, tables, lane_cls, dev) -> dict:
 
 def k6_inputs(plan, rows: int, seed: int, dev):
     """K6's inputs at one shape: seeded 0/1 parent rows (2 % ones), tags in
-    [-1, T+2) (pads and tags past the tag space), and the plan's tables."""
+    [-1, T+2) (pads and tags past the tag space), and the plan's tables,
+    the parent as ``parent_idx`` (the plan's ``in_state``), as the engines
+    pass it."""
     g = torch.Generator(device=dev).manual_seed(seed)
     t, s = plan["req"].shape
     parent = torch.empty((rows, s), dtype=torch.float32,
                          device=dev).bernoulli_(0.02, generator=g)
     tags = torch.randint(-1, t + 2, (rows,), generator=g, device=dev,
                          dtype=torch.int32)
-    return (parent, tags, plan["req"], plan["wild"], plan["parent_1h"],
+    return (parent, tags, plan["req"], plan["wild"], plan["in_state"],
             plan["selfloop"])
 
 
 def k6_vs_plain(level_plan, layout, dev) -> float:
-    """Phase 2, K6: the kernel against its plain version at a wavefront
-    step's shape and at the widest level's, on the card."""
+    """Phase 2, K6: the kernel against its plain version (the gather by
+    ``parent_idx``) and against ``ref.nfa_transition`` (the TPU kernel's
+    product by the parent one-hot, full float32) at a wavefront step's
+    shape and at the widest level's, on the card."""
     from repro_torch.kernels import nfa_transition as nt
     from repro_torch.kernels import ref
 
     err = 0.0
+    check(torch.equal(nt.parent_index(level_plan["parent_1h"]),
+                      level_plan["in_state"]),
+          "the plan's in_state is not its parent one-hot's index")
     for label, rows in (("wavefront step", layout["step_rows"]),
                         ("widest level", layout["level_rows"])):
         args = k6_inputs(level_plan, rows, rows, dev)
         k = nt.nfa_transition(*args)
-        p = ref.nfa_transition(*args)
+        p = nt.nfa_transition_plain(*args)
         torch.cuda.synchronize()
         check(bool(p.any()) and not bool(p.all()),
               f"K6 plain version at the {label} is constant")
         e = float((k - p).abs().max())
+        del p
+        product = ref.nfa_transition(*args[:4], level_plan["parent_1h"],
+                                     args[5])
+        torch.cuda.synchronize()
+        e_product = float((k - product).abs().max())
         say(f"K6 {label} ({rows}, {args[0].shape[1]}): max |kernel - plain| "
-            f"= {e}")
+            f"= {e}, max |kernel - product form| = {e_product}")
         check(e == 0, f"K6 disagrees with its plain version at the {label}")
-        err = max(err, e)
-        del args, k, p
+        check(e_product == 0, f"K6 disagrees with ref.nfa_transition at the "
+                              f"{label}")
+        err = max(err, e, e_product)
+        del args, k, product
         torch.cuda.empty_cache()
     return err
 
@@ -664,6 +712,19 @@ def times(run, short, tables, lane_cls, errs, dev) -> dict:
     k1, k1_out = time_ms(lambda: sf.stream_filter(
         events, *tables, max_depth=MAX_DEPTH), warmup=1, reps=5)
     say(f"K1 kernel, events {tuple(events.shape)}: {k1:.3f} ms")
+    # K2's split: the same length of bytes with no tag (the byte front end
+    # and the hand-over alone), against K1 (the chain alone, on the events
+    # already compacted)
+    notag = torch.full_like(data, ord(" "))
+    k2_front, front_out = time_ms(lambda: sf.stream_filter_bytes(
+        notag, starts, *tables, max_depth=MAX_DEPTH), warmup=1, reps=5)
+    check(not bool(front_out[0].any()), "K2 matched on bytes with no tag")
+    chain = int(batch.n_events.max())
+    say(f"K2 split: {k2:.3f} ms = front end alone (no tag, same bytes) "
+        f"{k2_front:.3f} ms, chain alone (K1, same documents) {k1:.3f} ms, "
+        f"rest {k2 - k1:.3f} ms beyond the chain; chain "
+        f"{k1 * 1e6 / chain:.1f} ns an event over {chain} events (K1), "
+        f"{k2 * 1e6 / chain:.1f} ns (K2)")
     # the sparse kernels at the same 1 MB shapes, with a cap they fit in
     k3_big, k3_out = time_ms(lambda: sf.stream_filter_bytes_sparse(
         data, starts, rows, *tables, lane_cls, cap=PAST_BUDGET_CAP,
@@ -707,7 +768,9 @@ def times(run, short, tables, lane_cls, errs, dev) -> dict:
         ms, _, bms, by = out[name]
         say(f"{name}: {ms:.3f} ms against a bound of {bms:.4f} ms "
             f"({by}); {n_events / ms / 1e3:.1f} M events/s, "
-            f"{bb.nbytes_total() / ms / 1e6:.3f} GB/s of payload")
+            f"{bb.nbytes_total() / ms / 1e6:.3f} GB/s of payload, "
+            f"{ms * 1e6 / chain:.1f} ns an event of the longest chain")
+
 
     # K5 where its main path runs it: the 1 MB request's parse
     k5, k5_out = time_ms(lambda: pd.predecode(data), warmup=1, reps=5)
@@ -722,6 +785,9 @@ def times(run, short, tables, lane_cls, errs, dev) -> dict:
     # K3/K4 where their main path runs them: a request of short messages
     sbb, sdata, sstarts, srows, sbatch, sevents = request_inputs(
         short["payloads"], short["streams"], stage, dev)
+    short_chain = int(sbatch.n_events.max())
+    out["chain_events"] = {"K1": chain, "K2": chain, "K3": short_chain,
+                           "K4": short_chain}
     k3, k3_out = time_ms(lambda: sf.stream_filter_bytes_sparse(
         sdata, sstarts, srows, *tables, lane_cls, cap=SPARSE_CAP,
         max_depth=MAX_DEPTH), warmup=1, reps=20)
@@ -754,51 +820,84 @@ def times(run, short, tables, lane_cls, errs, dev) -> dict:
                                                      tuple(sevents.shape))):
         ms, pms, bms, by = out[name]
         say(f"{name} kernel on short messages {shape}, {n_rows} rows: "
-            f"{ms:.3f} ms, plain {pms:.1f} ms; bound {bms:.4f} ms ({by})")
+            f"{ms:.3f} ms, plain {pms:.1f} ms; bound {bms:.4f} ms ({by}); "
+            f"{ms * 1e6 / out['chain_events'][name]:.1f} ns an event of the "
+            f"longest chain ({out['chain_events'][name]} events)")
     out["big"] = {"K3": k3_big, "K4": k4_big}
     return out
 
 
 def k6_times(level_plan, layout, errs, dev) -> dict:
-    """Phase 5, K6: kernel, plain version and ``torch.matmul`` of its
-    product (full float32, TF32 off; the port never calls it) at a
-    wavefront step's shape and at the widest level's."""
+    """Phase 5, K6: kernel, plain version and two PyTorch calls the port
+    never makes -- ``torch.index_select`` of the parents' values (the
+    gather alone) and ``torch.matmul`` by the parent one-hot (the TPU
+    kernel's product, full float32, TF32 off) -- at a wavefront step's
+    shape and at the widest level's."""
     from repro_torch.kernels import nfa_transition as nt
-    from repro_torch.kernels import ref
 
     check(not torch.backends.cuda.matmul.allow_tf32,
           "torch.backends.cuda.matmul.allow_tf32 is on")
     say("K6 times; torch.backends.cuda.matmul.allow_tf32 = False, "
         f"float32 matmul precision {torch.get_float32_matmul_precision()!r}")
+    p1h = level_plan["parent_1h"]
     out = {}
-    for key, rows, reps in (("step", layout["step_rows"], 20),
-                            ("level", layout["level_rows"], 3)):
+    for key, rows, reps in (("step", layout["step_rows"], 50),
+                            ("level", layout["level_rows"], 5)):
         args = k6_inputs(level_plan, rows, rows + 1, dev)
-        ms, k_out = time_ms(lambda: nt.nfa_transition(*args), warmup=1,
-                            reps=reps)
-        plain_ms, p_out = time_ms(lambda: ref.nfa_transition(*args),
+        parent, idx = args[0], args[4]
+        # device time from a graph of launches: a wavefront step's kernel
+        # is shorter than the host's time to launch it
+        ms = graph_ms(lambda: nt.nfa_transition(*args), reps=reps)
+        events_ms, k_out = time_ms(lambda: nt.nfa_transition(*args),
+                                   warmup=1, reps=reps)
+        plain_ms, p_out = time_ms(lambda: nt.nfa_transition_plain(*args),
                                   warmup=1, reps=max(1, reps // 3))
-        lib_ms, _ = time_ms(lambda: torch.matmul(args[0], args[4]),
-                            warmup=1, reps=reps)
         errs["K6"] = max(errs["K6"], float((k_out - p_out).abs().max()))
         check(errs["K6"] == 0, f"K6 disagrees with its plain version at "
-                               f"{tuple(args[0].shape)}")
-        w, s = args[0].shape
+                               f"{tuple(parent.shape)}")
+        del k_out, p_out
+        gather_ms = graph_ms(lambda: torch.index_select(parent, 1, idx),
+                             reps=reps)
+        matmul_ms = graph_ms(lambda: torch.matmul(parent, p1h),
+                             reps=max(1, reps // 2))
+        # host time of one call: the Python wrapper and the launch, which
+        # the card can hide only when the kernel takes longer
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            nt.nfa_transition(*args)
+        host_ms = (time.perf_counter() - t0) / reps * 1e3
+        torch.cuda.synchronize()
+        w, s = parent.shape
         t = args[2].shape[0]
-        flop = 2 * w * s * s
-        # parent rows, one-hot, req, wild, selfloop and tags read, out written
-        n_bytes = 4 * (2 * w * s + s * s + t * s + 2 * s + w)
-        bound_ms, bound_by = bound(n_bytes, flop, FP32_FLOP_PER_S)
-        out[key] = {"rows": w, "ms": ms, "plain_ms": plain_ms,
-                    "library_ms": lib_ms, "bound_ms": bound_ms,
+        # the gather's work: each parent row read once and each output
+        # written once, req, the three (S,) vectors and the tags read once;
+        # about five operations an output (select, add, two products, clamp)
+        n_bytes = 4 * (2 * w * s + t * s + 3 * s + w)
+        bound_ms, bound_by = bound(n_bytes, K6_OPS_PER_OUTPUT * w * s,
+                                   FP32_FLOP_PER_S)
+        flop = 2 * w * s * s   # the TPU kernel's dense product, for history
+        out[key] = {"rows": w, "ms": ms, "events_ms": events_ms,
+                    "plain_ms": plain_ms,
+                    "library_ms": gather_ms, "matmul_ms": matmul_ms,
+                    "host_ms": host_ms, "bound_ms": bound_ms,
                     "bound_by": bound_by,
+                    "ffma_bound_ms": flop / FP32_FLOP_PER_S * 1e3,
                     "bf16_bound_ms": flop / BF16_TENSOR_FLOP_PER_S * 1e3}
-        say(f"K6 kernel ({w}, {s}) @ ({s}, {s}): {ms:.3f} ms = "
-            f"{flop / ms / 1e9:.1f} TFLOP/s; plain {plain_ms:.3f} ms; "
-            f"torch.matmul {lib_ms:.3f} ms; bound {bound_ms:.4f} ms "
-            f"({bound_by}, float32 non-tensor), bf16 tensor-core line "
+        say(f"K6 kernel ({w}, {s}) gathered by parent_idx ({s},): {ms:.4f} ms "
+            f"= {n_bytes / ms / 1e6:.1f} GB/s, {bound_ms / ms * 100:.1f} % of "
+            f"its bound {bound_ms:.4f} ms ({bound_by}) (CUDA graph of {reps}); "
+            f"{events_ms:.4f} ms a call launched one by one, host time of a "
+            f"call {host_ms:.4f} ms; plain {plain_ms:.3f} ms; "
+            f"torch.index_select "
+            f"{gather_ms:.4f} ms; torch.matmul by the one-hot {matmul_ms:.3f} "
+            f"ms; the product's old bounds: float32 FFMA "
+            f"{out[key]['ffma_bound_ms']:.4f} ms, bf16 tensor-core line "
             f"{out[key]['bf16_bound_ms']:.4f} ms; max |kernel - plain| = 0")
-        del args, k_out, p_out
+        check(ms < matmul_ms, f"K6 ({ms:.4f} ms) is not faster than "
+                              f"torch.matmul ({matmul_ms:.4f} ms) at "
+                              f"{tuple(parent.shape)}")
+        del args, parent
         torch.cuda.empty_cache()
     return out
 
@@ -956,12 +1055,19 @@ def main() -> int:
     rows = []
     for key, name, source, replaces in KERNELS:
         ms, plain_ms, bound_ms, bound_by = t[key]
-        rows.append({
+        row = {
             "name": f"{key} {name}", "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[key],
             "max_abs_err": errs[key], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": step["library_ms"] if key == "K6" else None})
+            # K6: torch.index_select of the parents' values (the gather);
+            # torch.matmul by the one-hot beside it
+            "library_ms": step["library_ms"] if key == "K6" else None}
+        if key == "K6":
+            row["matmul_ms"] = step["matmul_ms"]
+        if key in t["chain_events"]:
+            row["chain_ns_per_event"] = ms * 1e6 / t["chain_events"][key]
+        rows.append(row)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

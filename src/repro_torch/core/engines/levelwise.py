@@ -8,7 +8,7 @@ bucketed by depth on the host, and the NFA advances every node of a
 level at once:
 
     tagmatch = onehot(tags) @ REQ + wild
-    src      = parent_active @ P
+    src      = parent_active @ P        (K6: parent_active[:, in_state])
     next     = min(src * tagmatch + parent_active * selfloop, 1)
 
 * :class:`LevelwiseEngine` pads every level to the widest and runs one
@@ -308,7 +308,8 @@ def _run_level(tags: torch.Tensor, parent_slot: torch.Tensor,
     selfloop, init, req, wild, p1h = (plan[k] for k in (
         "selfloop", "init", "req", "wild", "parent_1h"))
     accept = plan["accept_state"].long()
-    in_state = plan["in_state"].long()
+    parent_idx = plan["in_state"]
+    in_state = parent_idx.long()
     in_tag = plan["in_tag"]
     rows = torch.arange(b, device=dev)[:, None]
     prev = torch.zeros((b, w_max + 1, s), dtype=torch.float32, device=dev)
@@ -319,8 +320,8 @@ def _run_level(tags: torch.Tensor, parent_slot: torch.Tensor,
         parent_rows = prev[rows, parent_slot[:, d].long()].reshape(b * w_max, s)
         flat_tags = tg.reshape(-1).contiguous()
         if use_kernel:
-            nxt = nt.nfa_transition(parent_rows, flat_tags, req, wild, p1h,
-                                    selfloop)
+            nxt = nt.nfa_transition(parent_rows, flat_tags, req, wild,
+                                    parent_idx, selfloop)
         else:
             if use_matmul:
                 tagmatch = ref.tag_rows(flat_tags, req) + wild[None, :]
@@ -389,8 +390,8 @@ def _run_wavefront_kernel(tags: torch.Tensor, parent_idx: torch.Tensor,
     s = int(plan.meta["n_states"])
     dev = tags.device
     buf_len = n_chunks * c
-    selfloop, req, wild, p1h = (plan[k] for k in (
-        "selfloop", "req", "wild", "parent_1h"))
+    selfloop, req, wild, in_state = (plan[k] for k in (
+        "selfloop", "req", "wild", "in_state"))
     accept = plan["accept_state"].long()
     rows = torch.arange(b, device=dev)[:, None]
     buf = torch.zeros((b, buf_len + 1, s), dtype=torch.float32, device=dev)
@@ -400,7 +401,7 @@ def _run_wavefront_kernel(tags: torch.Tensor, parent_idx: torch.Tensor,
         tg, vld = tags[:, i], valid[:, i]
         parent_rows = buf[rows, parent_idx[:, i].long()].reshape(b * c, s)
         tg_masked = torch.where(vld, tg, -1).reshape(-1)
-        nxt = nt.nfa_transition(parent_rows, tg_masked, req, wild, p1h,
+        nxt = nt.nfa_transition(parent_rows, tg_masked, req, wild, in_state,
                                 selfloop).view(b, c, s)
         buf[:, i * c:(i + 1) * c] = nxt
         matched, first = _accumulate(nxt, vld, event_idx[:, i], accept,

@@ -35,30 +35,36 @@ _SPARSE = [_P, _I, _P, _P]             # lane_cls, cap, buf, count
 #: C entry points of each library (by source stem)
 SIGNATURES = {
     "stream_filter": {
-        # n_tags, WB, QB, max_depth, sparse
-        "sf_smem_bytes": ([_I] * 5, ctypes.c_longlong),
-        # events, B, N, tables, matched, first, stream
-        "sf_events": ([_P, _I, _I] + _TABLES + [_P, _P, _P], ctypes.c_int),
-        # events, B, N, doc_ids, tables, lane_cls, cap, buf, count, stream
-        "sf_events_sparse": ([_P, _I, _I, _P] + _TABLES + _SPARSE + [_P],
-                             ctypes.c_int),
-        # data, S, L, starts, D, tables, matched, first, stream
-        "sf_bytes": ([_P, _I, _I, _P, _I] + _TABLES + [_P, _P, _P],
+        # n_tags, WB, QB, max_depth, sparse, bytes
+        "sf_smem_bytes": ([_I] * 6, ctypes.c_longlong),
+        "sf_max_slots": ([], ctypes.c_int),
+        # G, n_tags, WB
+        "sf_scratch_words": ([_I] * 3, ctypes.c_longlong),
+        # events, B, N, tables, matched, first, scratch, stream
+        "sf_events": ([_P, _I, _I] + _TABLES + [_P, _P, _P, _P],
+                      ctypes.c_int),
+        # events, B, N, doc_ids, tables, lane_cls, cap, buf, count,
+        # scratch, stream
+        "sf_events_sparse": ([_P, _I, _I, _P] + _TABLES + _SPARSE
+                             + [_P, _P], ctypes.c_int),
+        # data, S, L, starts, D, tables, matched, first, scratch, stream
+        "sf_bytes": ([_P, _I, _I, _P, _I] + _TABLES + [_P, _P, _P, _P],
                      ctypes.c_int),
         # data, S, L, starts, D, doc_map, tables, lane_cls, cap, buf,
-        # count, stream
+        # count, scratch, stream
         "sf_bytes_sparse": ([_P, _I, _I, _P, _I, _P] + _TABLES + _SPARSE
-                            + [_P], ctypes.c_int),
+                            + [_P, _P], ctypes.c_int),
     },
     "predecode": {
         # data, rows, L, kind, tag, stream
         "pd_predecode": ([_P, _I, _I, _P, _P, _P], ctypes.c_int),
     },
     "nfa_transition": {
-        # parent_rows, W, S, tags, req, T, wild, parent_1h, selfloop, out,
-        # stream
-        "nt_transition": ([_P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P],
+        # parent_rows, W, S, tags, req, T, wild, parent_idx, selfloop, out,
+        # vec4, stream
+        "nt_transition": ([_P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _I, _P],
                           ctypes.c_int),
+        "nt_staged_max_states": ([], ctypes.c_int),
     },
 }
 SOURCES = tuple(CSRC / f"{name}.cu" for name in SIGNATURES)

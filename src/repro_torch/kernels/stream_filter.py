@@ -40,7 +40,7 @@ from .ref import NO_MATCH, PAD, fuse_events  # noqa: F401
 
 #: largest dynamic shared memory one thread block may use on Hopper
 SMEM_LIMIT = 232_448
-#: threads per block are one per packed word, rounded up to whole warps
+#: most packed words a block may have (a chain's lane owns up to 32)
 MAX_WORDS = 1024
 _INT32_MAX = 2 ** 31 - 1
 
@@ -78,11 +78,16 @@ def _check(x: torch.Tensor, name: str, dtype: torch.dtype,
 
 
 def check_block_tables(tables: dict[str, np.ndarray]) -> None:
-    """Reject block tables whose indices would leave the block.
+    """Reject block tables whose indices would leave the block, or whose
+    tag masks the kernels' gather entries cannot hold.
 
     The kernels index shared memory with ``pw``/``pb`` and
-    ``acc_word``/``acc_bit``; plans are checked once, on the host, when
-    they are built or carried over (:mod:`repro_torch.convert`).
+    ``acc_word``/``acc_bit``.  They also turn the tag masks into one gather
+    entry per state a tag can switch on, at most 32 * WB a block: every
+    state's bit must be set in all T+1 rows of its block (a wildcard) or in
+    at most one, as every plan the system builds has it.  Plans are
+    checked once, on the host, when they are built or carried over
+    (:mod:`repro_torch.convert`).
     """
     wb = tables["kb_selfloop"].shape[-1]
     for name, hi in (("kb_pw", wb), ("kb_pb", 32), ("kb_acc_word", wb),
@@ -90,21 +95,52 @@ def check_block_tables(tables: dict[str, np.ndarray]) -> None:
         x = np.asarray(tables[name])
         if x.size and (x.min() < 0 or x.max() >= hi):
             raise ValueError(f"{name} holds values outside [0, {hi})")
+    tagmask = np.ascontiguousarray(tables["kb_tagmask"]).view(np.uint32)
+    rows = tagmask.shape[1]
+    for g, block in enumerate(tagmask):                  # (T+1, WB) words
+        bits = np.unpackbits(block.view(np.uint8), axis=1,
+                             bitorder="little")          # (T+1, WB*32)
+        count = bits.sum(0, dtype=np.int64)
+        bad = np.nonzero((count > 1) & (count < rows))[0]
+        if bad.size:
+            w, j = divmod(int(bad[0]), 32)
+            raise ValueError(
+                f"kb_tagmask block {g} word {w} bit {j} is set in "
+                f"{int(count[bad[0]])} of its {rows} tag rows; the kernels "
+                f"take a state in every row (a wildcard) or in at most one")
 
 
 def _smem_check(lib, n_tags: int, wb: int, qb: int, max_depth: int,
-                sparse: bool = False) -> None:
-    need = int(lib.sf_smem_bytes(n_tags, wb, qb, max_depth, int(sparse)))
+                sparse: bool = False, bytes_: bool = False) -> None:
+    need = int(lib.sf_smem_bytes(n_tags, wb, qb, max_depth, int(sparse),
+                                 int(bytes_)))
     if need > SMEM_LIMIT:
         lanes = 4 if sparse else 3
         raise ValueError(
             f"block needs {need} B of shared memory, over the {SMEM_LIMIT} B "
-            f"limit: tag masks (T+1)*WB*4 = {(n_tags + 1) * wb * 4}, parent "
-            f"lanes 32*WB*4 = {32 * wb * 4}, stack (max_depth+2)*WB*4 = "
+            f"limit: gather entries 32*WB*4 + (T+2)*4 = "
+            f"{32 * wb * 4 + (n_tags + 2) * 4}, stack (max_depth+2)*WB*4 = "
             f"{(max_depth + 2) * wb * 4}, accept lanes {lanes}*QB*4 = "
             f"{4 * lanes * qb}" + (" (with their accept classes)"
                                    if sparse else "")
+            + (" and the event ring" if bytes_ else "")
             + f" (T={n_tags}, WB={wb}, QB={qb}, max_depth={max_depth})")
+
+
+def _slots_check(lib, n_docs: int) -> None:
+    most = int(lib.sf_max_slots())
+    if n_docs > most:
+        raise ValueError(f"{n_docs} document slots per segment exceed the "
+                         f"kernel's {most}")
+
+
+def _scratch(lib, g: int, n_tags: int, wb: int,
+             device: torch.device) -> torch.Tensor:
+    """The launch's scratch: its blocks' gather entries.  The kernels run
+    on the stream they were launched on; freed when the call returns, the
+    buffer is reused only by later work on that stream, after them."""
+    return torch.empty(int(lib.sf_scratch_words(g, n_tags, wb)),
+                       dtype=torch.int32, device=device)
 
 
 def _ptr(x: torch.Tensor) -> ctypes.c_void_p:
@@ -155,7 +191,7 @@ def stream_filter(events: torch.Tensor, tagmask: torch.Tensor,
         err = lib.sf_events(
             _ptr(events), b, n, *map(_ptr, tables), g, n_tags, wb, qb,
             int(max_depth), _ptr(matched), _ptr(first),
-            ctypes.c_void_p(stream))
+            _ptr(_scratch(lib, g, n_tags, wb, dev)), ctypes.c_void_p(stream))
     _raise_on(err, "stream_filter")
     stream_filter.launches += 1
     return matched, first
@@ -227,9 +263,10 @@ def stream_filter_bytes(data: torch.Tensor, starts: torch.Tensor,
     from . import build
 
     lib = build.load("stream_filter")
-    _smem_check(lib, n_tags, wb, qb, max_depth)
+    _smem_check(lib, n_tags, wb, qb, max_depth, bytes_=True)
     s, length = data.shape
     d = starts.shape[1] - 1
+    _slots_check(lib, d)
     if s > 65535:
         raise ValueError(f"{s} segments exceed the grid's 65535")
     matched = torch.empty((s, g, d, qb), dtype=torch.int32, device=dev)
@@ -241,7 +278,7 @@ def stream_filter_bytes(data: torch.Tensor, starts: torch.Tensor,
         err = lib.sf_bytes(
             _ptr(data), s, length, _ptr(starts), d, *map(_ptr, tables), g,
             n_tags, wb, qb, int(max_depth), _ptr(matched), _ptr(first),
-            ctypes.c_void_p(stream))
+            _ptr(_scratch(lib, g, n_tags, wb, dev)), ctypes.c_void_p(stream))
     _raise_on(err, "stream_filter_bytes")
     stream_filter_bytes.launches += 1
     return matched, first
@@ -407,7 +444,8 @@ def stream_filter_sparse(events: torch.Tensor, doc_ids: torch.Tensor,
         err = lib.sf_events_sparse(
             _ptr(events), b, n, _ptr(doc_ids), *map(_ptr, tables), g, n_tags,
             wb, qb, int(max_depth), _ptr(lane_cls), cap, _ptr(buf),
-            _ptr(count), ctypes.c_void_p(stream))
+            _ptr(count), _ptr(_scratch(lib, g, n_tags, wb, dev)),
+            ctypes.c_void_p(stream))
     _raise_on(err, "stream_filter_sparse")
     stream_filter_sparse.launches += 1
     return buf, count
@@ -469,7 +507,8 @@ def stream_filter_bytes_sparse(data: torch.Tensor, starts: torch.Tensor,
     from . import build
 
     lib = build.load("stream_filter")
-    _smem_check(lib, n_tags, wb, qb, max_depth, sparse=True)
+    _smem_check(lib, n_tags, wb, qb, max_depth, sparse=True, bytes_=True)
+    _slots_check(lib, d)
     if s > 65535:
         raise ValueError(f"{s} segments exceed the grid's 65535")
     buf, count = _empty_rows(cap, dev)
@@ -481,7 +520,7 @@ def stream_filter_bytes_sparse(data: torch.Tensor, starts: torch.Tensor,
             _ptr(data), s, length, _ptr(starts), d, _ptr(doc_map),
             *map(_ptr, tables), g, n_tags, wb, qb, int(max_depth),
             _ptr(lane_cls), cap, _ptr(buf), _ptr(count),
-            ctypes.c_void_p(stream))
+            _ptr(_scratch(lib, g, n_tags, wb, dev)), ctypes.c_void_p(stream))
     _raise_on(err, "stream_filter_bytes_sparse")
     stream_filter_bytes_sparse.launches += 1
     return buf, count

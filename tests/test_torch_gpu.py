@@ -8,7 +8,7 @@ machine with an H100 and the CUDA toolkit::
 
 The first test builds the kernels (``build/repro_torch/``).  Outputs are
 0/1 lanes, int32 ordinals, int32 match rows and K6's float32 0/1 states
-(sums of 0/1 products, exact in any order): exact equality, with the
+(gathered values, exact): exact equality, with the
 sparse kernels' rows compared as sorted sets (their order on the card is
 not fixed) and their counts exactly.  The file imports nothing of JAX, so
 it runs where only the port is installed.
@@ -23,7 +23,8 @@ from repro_torch.core.dictionary import TagDictionary
 from repro_torch.core.events import (SEG_SENTINEL, ByteBatch, EventBatch,
                                      encode_bytes, pack_segments)
 from repro_torch.core.nfa import compile_queries
-from repro_torch.data.generator import DTD, gen_corpus, gen_profiles
+from repro_torch.data.generator import (DTD, gen_corpus, gen_document,
+                                        gen_profiles)
 from repro_torch.kernels import parse
 from repro_torch.kernels import predecode as pd
 from repro_torch.kernels import stream_filter as sf
@@ -61,7 +62,7 @@ def plans(nfa, d, cuda, **kw):
     return cpu, gpu
 
 
-@pytest.mark.parametrize("blk", [32, 256, 2048])
+@pytest.mark.parametrize("blk", [32, 256, 2048, 8192])
 def test_event_kernel_equals_plain(cuda, blk):
     dtd, d, nfa = workload(200, seed=1)
     cpu, gpu = plans(nfa, d, cuda, blk=blk)
@@ -209,6 +210,95 @@ def test_bytes_sparse_kernel_equals_plain(cuda, pack, cap):
             <= {tuple(r) for r in pb[:int(pn[0])].numpy()}
 
 
+def handover_batch(dtd, seed):
+    """Byte segments aimed at the byte kernels' event ring (windows of 256
+    positions, 7 in flight): document starts on window edges and inside a
+    window, a document longer than the ring, empty document slots (at the
+    start, in the middle and unused sentinel slots at the end), and a
+    segment with no tags at all.  Returns data (S, L), starts (S, D+1),
+    doc_map (S, D) and the documents as event streams, in batch-row
+    order."""
+    rng = np.random.default_rng(seed)
+    docs = [gen_document(dtd, target_nodes=n, max_depth=12, seed=seed + i)
+            for i, n in enumerate((20, 300, 25, 15, 40))]
+    bufs = [encode_bytes(x, text_fill=5) for x in docs]
+    assert len(bufs[1]) > 7 * 256                  # longer than the ring
+
+    def padded(buf, multiple):                     # filler: no '<'
+        return buf + b" " * (-len(buf) % multiple)
+
+    segs = [
+        # doc 0 ends on a window edge, so doc 1's first '<' opens a window;
+        # an empty slot, then doc 2 on a window edge too
+        ([padded(bufs[0], 256), padded(bufs[1], 256), b"", bufs[2]],
+         [0, 1, -1, 2]),
+        # empty slots first, then doc 3, and doc 4 from inside a window
+        ([b"", b"", bufs[3], bufs[4]], [-1, -1, 3, 4]),
+        # no tags at all in two slots
+        ([bytes(rng.choice(list(b"abc xyz/>"), 700).tolist()), b" " * 300],
+         [-1, -1]),
+    ]
+    n_slots = max(len(x) for x, _ in segs) + 1     # + an unused slot
+    length = max(sum(map(len, x)) for x, _ in segs)
+    data = np.zeros((len(segs), length), np.uint8)
+    starts = np.full((len(segs), n_slots + 1), SEG_SENTINEL, np.int32)
+    doc_map = np.full((len(segs), n_slots), -1, np.int32)
+    for r, (parts, rows) in enumerate(segs):
+        pos = 0
+        for k, (part, row) in enumerate(zip(parts, rows)):
+            starts[r, k] = pos
+            data[r, pos:pos + len(part)] = np.frombuffer(part, np.uint8)
+            pos += len(part)
+            doc_map[r, k] = row
+    assert starts[0, 1] % 256 == 0 and starts[0, 3] % 256 == 0
+    assert starts[1, 3] % 256 != 0
+    return data, starts, doc_map, docs
+
+
+@pytest.mark.parametrize("seed", [12, 13])
+def test_byte_kernels_on_ring_hand_over_cases(cuda, seed):
+    """K2 and K3 against their plain versions on the ring's edge cases;
+    K1 and K4 on the same documents with an empty one among them."""
+    dtd, d, nfa = workload(200, seed=seed)
+    cpu, gpu = plans(nfa, d, cuda, blk=64)
+    data, starts, doc_map, docs = handover_batch(dtd, seed)
+    data, starts, doc_map = map(torch.from_numpy, (data, starts, doc_map))
+    lane_cls = lane_classes(cpu, "cpu")
+    kt, pt = [gpu.plan_[k] for k in KB], [cpu.plan_[k] for k in KB]
+    km, kf = sf.stream_filter_bytes(data.to(cuda), starts.to(cuda), *kt,
+                                    max_depth=64)
+    pm, pf = sf.stream_filter_bytes(data, starts, *pt, max_depth=64)
+    assert pm[0].any() and not pm[2].any()
+    assert torch.equal(km.cpu(), pm) and torch.equal(kf.cpu(), pf)
+    kb, kn = sf.stream_filter_bytes_sparse(
+        data.to(cuda), starts.to(cuda), doc_map.to(cuda), *kt,
+        lane_cls.to(cuda), cap=10 ** 5, max_depth=64)
+    pb, pn = sf.stream_filter_bytes_sparse(data, starts, doc_map, *pt,
+                                           lane_cls, cap=10 ** 5,
+                                           max_depth=64)
+    assert int(kn[0]) == int(pn[0]) > 0
+    np.testing.assert_array_equal(sorted_rows(kb, kn, 10 ** 5),
+                                  sorted_rows(pb, pn, 10 ** 5))
+
+    batch = EventBatch.from_streams(docs + [gen_document(
+        dtd, target_nodes=0, seed=0)], bucket=64)
+    events = sf.fuse_events(torch.from_numpy(batch.kind),
+                            torch.from_numpy(batch.tag_id))
+    assert events.shape[1] > 8 * 32                # many 32-event chunks
+    km, kf = sf.stream_filter(events.to(cuda), *kt, max_depth=64)
+    pm, pf = sf.stream_filter(events, *pt, max_depth=64)
+    assert torch.equal(km.cpu(), pm) and torch.equal(kf.cpu(), pf)
+    rows = torch.arange(events.shape[0], dtype=torch.int32)[:, None]
+    kb, kn = sf.stream_filter_sparse(events.to(cuda), rows.to(cuda), *kt,
+                                     lane_cls.to(cuda), cap=10 ** 5,
+                                     max_depth=64)
+    pb, pn = sf.stream_filter_sparse(events, rows, *pt, lane_cls,
+                                     cap=10 ** 5, max_depth=64)
+    assert int(kn[0]) == int(pn[0]) > 0
+    np.testing.assert_array_equal(sorted_rows(kb, kn, 10 ** 5),
+                                  sorted_rows(pb, pn, 10 ** 5))
+
+
 def test_predecode_kernel_equals_plain(cuda):
     rng = np.random.default_rng(7)
     alphabet = np.frombuffer(b"<<</>abcXYZ09_.x >\x00\xff", np.uint8)
@@ -258,12 +348,13 @@ def test_engine_sparse_and_parse_on_card_equal_cpu(cuda):
 # ------------------------------------------------------------------- K6
 def transition_inputs(nfa, w, seed, density=0.2):
     """Random 0/1 parent rows and tags in [-1, T+2) over an NFA's tables,
-    all on the CPU (float32 and int32, contiguous)."""
+    all on the CPU (float32 and int32, contiguous); the parent is given
+    as ``parent_idx`` (the NFA's ``in_state``)."""
     rng = np.random.default_rng(seed)
     s = nfa.n_states
     parent = (rng.random((w, s)) < density).astype(np.float32)
     tags = rng.integers(-1, nfa.n_tags + 2, size=w).astype(np.int32)
-    tables = (nfa.req_matrix(), nfa.wild_vector(), nfa.parent_onehot(),
+    tables = (nfa.req_matrix(), nfa.wild_vector(), nfa.tables.in_state,
               nfa.tables.selfloop.astype(np.float32))
     return tuple(torch.from_numpy(np.ascontiguousarray(x))
                  for x in (parent, tags) + tables)
@@ -272,8 +363,9 @@ def transition_inputs(nfa, w, seed, density=0.2):
 @pytest.mark.parametrize("w,multiple", [(1, 1), (63, 1), (65, 7), (130, 128),
                                         (200, 64)])
 def test_nfa_transition_kernel_equals_plain(cuda, w, multiple):
-    """Ragged W and S (states padded to 1, 7, 64 or 128), tags past the
-    tag space and -1 pads: exact equality with the plain version."""
+    """Ragged W and S (states padded to 1, 7, 64 or 128: the 4-byte and
+    the 16-byte paths), tags past the tag space and -1 pads: exact
+    equality with the plain version."""
     from repro_torch.core.nfa import pad_states
     from repro_torch.kernels import nfa_transition as nt
 
@@ -289,10 +381,32 @@ def test_nfa_transition_kernel_equals_plain(cuda, w, multiple):
     assert torch.equal(got.cpu(), want)
 
 
+@pytest.mark.parametrize("extra", [0, 3])
+def test_nfa_transition_kernel_past_shared_memory(cuda, extra):
+    """States past what two staged rows fit in shared memory: the kernel
+    reads parent values from device memory, equal to the plain version
+    (S a multiple of 4, and not)."""
+    from repro_torch.core.nfa import pad_states
+    from repro_torch.kernels import nfa_transition as nt
+
+    dtd, d, nfa = workload(40, seed=11)
+    s = nt.staged_max_states() + 4 + extra
+    nfa = pad_states(nfa, to=s)
+    args = list(transition_inputs(nfa, 37, seed=11))
+    # real states' parents spread over the row, not only at its start
+    rng = np.random.default_rng(11)
+    args[4] = torch.from_numpy(rng.integers(0, s, size=s).astype(np.int32))
+    got = nt.nfa_transition(*(x.to(cuda) for x in args))
+    want = nt.nfa_transition(*args)
+    assert want.any() and (want == 0).any()
+    assert torch.equal(got.cpu(), want)
+
+
 def test_nfa_transition_kernel_full_width_plan(cuda):
     """The 1,024-profile plan of chip_smoke (3,712 states) at a wavefront
-    step's 2,048 rows, against the plain version on the card in full
-    float32 (no TF32)."""
+    step's 2,048 rows, against the plain gather and the product form
+    (``torch.matmul`` by the one-hot, full float32, no TF32) on the
+    card."""
     from repro_torch.core.nfa import pad_states
     from repro_torch.kernels import nfa_transition as nt
     from repro_torch.kernels import ref
@@ -307,10 +421,12 @@ def test_nfa_transition_kernel_full_width_plan(cuda):
     args = [x.to(cuda) for x in transition_inputs(nfa, 2048, seed=1,
                                                   density=0.01)]
     got = nt.nfa_transition(*args)
-    want = ref.nfa_transition(*args)
+    want = nt.nfa_transition_plain(*args)
+    p1h = torch.from_numpy(nfa.parent_onehot()).to(cuda)
+    product = ref.nfa_transition(*args[:4], p1h, args[5])
     torch.cuda.synchronize()
     assert want.any()
-    assert torch.equal(got, want)
+    assert torch.equal(got, want) and torch.equal(got, product)
 
 
 @pytest.mark.parametrize("name,opts", [

@@ -1,9 +1,11 @@
 """The port's levelwise engines and K6 against the JAX package's, on the CPU.
 
-Kernel level: K6's plain version (what the wrapper runs on CPU tensors)
-against ``nfa_transition_pallas`` in interpret mode over several block
-shapes and against the JAX ``ref.nfa_transition``, with ragged widths and
-tags past the tag space.  Host level: the depth-major bucketing and the
+Kernel level: K6's plain version (what the wrapper runs on CPU tensors),
+the gather by ``parent_idx``, against ``nfa_transition_pallas`` in
+interpret mode over several block shapes and against the product forms of
+the JAX and port ``ref.nfa_transition``, with ragged widths and state
+counts, padding states and tags past the tag space; ``parent_index`` and
+its refusals.  Host level: the depth-major bucketing and the
 chunk layout against the JAX package's numpy code.  Engine level: both
 engines in every mode against the JAX engine with the same options and
 against the oracle, through every entry point; plans and plans carried
@@ -42,6 +44,7 @@ from repro_torch.core import events as tev  # noqa: E402
 from repro_torch.core.engines import levelwise as lw  # noqa: E402
 from repro_torch.data.filter_stage import FilterStage  # noqa: E402
 from repro_torch.kernels import nfa_transition as nt  # noqa: E402
+from repro_torch.kernels import ref as port_ref  # noqa: E402
 
 LD_FIELDS = ("tags", "parent_slot", "valid", "event_idx")
 CD_FIELDS = ("tags", "parent_idx", "valid", "event_idx")
@@ -69,23 +72,54 @@ def transition_inputs(nfa, w, seed):
             nfa.parent_onehot(), nfa.tables.selfloop.astype(np.float32))
 
 
+def port_args(args):
+    """The JAX-shaped K6 arguments for the port: the parent one-hot
+    becomes its ``parent_idx``."""
+    out = [torch.from_numpy(np.ascontiguousarray(x)) for x in args]
+    out[4] = nt.parent_index(out[4])
+    return out
+
+
 # ------------------------------------------------------------------- K6
 class TestNfaTransition:
     @pytest.mark.parametrize("w,s_mult,n_q", [(1, 1, 8), (4, 1, 8),
                                               (16, 2, 24), (130, 4, 64)])
     def test_plain_equals_pallas_and_jax_ref(self, w, s_mult, n_q):
+        """The gather form (the wrapper's CPU path) against the Pallas
+        kernel and the JAX and port product forms, with padding states
+        from ``pad_states`` (parent 0) and tags -1 and >= T."""
         dtd, d, qs, nfa = workload(n_queries=n_q, seed=w, n_tags=16)
         nfa = pad_states(nfa, 128 * s_mult)
         args = transition_inputs(nfa, w, seed=w)
-        got = nt.nfa_transition(*map(torch.from_numpy, args)).numpy()
+        assert (nfa.tables.in_state[-8:] == 0).all()    # padding states
+        got = nt.nfa_transition(*port_args(args)).numpy()
         want = np.asarray(jax_ref.nfa_transition(*map(jnp.asarray, args)))
         np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got, port_ref.nfa_transition(
+            *map(torch.from_numpy, args)).numpy())
         s = nfa.n_states
         for bw, bs in [(8, 128), (128, 128), (16, s)]:
             pal = nfa_transition_pallas(*map(jnp.asarray, args), bw=bw,
                                         bs=bs, interpret=True)
             np.testing.assert_array_equal(got, np.asarray(pal),
                                           err_msg=f"bw={bw} bs={bs}")
+
+    @pytest.mark.parametrize("w,multiple", [(3, 1), (37, 7), (65, 7)])
+    def test_plain_equals_pallas_at_ragged_states(self, w, multiple):
+        """States padded to 1 and 7 (S not a multiple of 4 or of the
+        Pallas block), ragged W: the gather form equals the Pallas kernel
+        (which pads both axes itself) and the product form."""
+        dtd, d, qs, nfa = workload(n_queries=20, seed=w, n_tags=16)
+        nfa = pad_states(nfa, multiple)
+        args = transition_inputs(nfa, w, seed=w + 1)
+        args[1][0], args[1][-1] = -1, nfa.n_tags + 1   # a pad, a tag >= T
+        got = nt.nfa_transition(*port_args(args)).numpy()
+        assert got.any() and not got.all()
+        np.testing.assert_array_equal(got, port_ref.nfa_transition(
+            *map(torch.from_numpy, args)).numpy())
+        pal = nfa_transition_pallas(*map(jnp.asarray, args), bw=8, bs=128,
+                                    interpret=True)
+        np.testing.assert_array_equal(got, np.asarray(pal))
 
     def test_tags_past_the_tag_space_match_wildcards_only(self):
         """A tag >= T is a zero one-hot row: tagmatch = wild, valid = 1;
@@ -95,20 +129,41 @@ class TestNfaTransition:
         parent, _, req, wild, p1h, sl = transition_inputs(nfa, 3, seed=3)
         parent[:] = nfa.tables.init.astype(np.float32)
         tags = np.array([nfa.n_tags, nfa.n_tags + 5, -1], np.int32)
-        got = nt.nfa_transition(*map(torch.from_numpy, (
-            parent, tags, req, wild, p1h, sl))).numpy()
+        args = (parent, tags, req, wild, p1h, sl)
+        got = nt.nfa_transition(*port_args(args)).numpy()
         src = parent @ p1h
         want = np.minimum(src * wild + parent * sl, 1)
         np.testing.assert_array_equal(got[:2], want[:2])
         assert got[:2].any() and not got[2].any()
         np.testing.assert_array_equal(got, np.asarray(
-            jax_ref.nfa_transition(*map(jnp.asarray, (
-                parent, tags, req, wild, p1h, sl)))))
+            jax_ref.nfa_transition(*map(jnp.asarray, args))))
+
+    def test_parent_index_is_in_state_and_refuses_other_matrices(self):
+        dtd, d, qs, nfa = workload(n_queries=16, seed=2)
+        nfa = pad_states(nfa, 7)
+        p1h = torch.from_numpy(nfa.parent_onehot())
+        idx = nt.parent_index(p1h)
+        assert idx.dtype == torch.int32
+        np.testing.assert_array_equal(idx.numpy(), nfa.tables.in_state)
+        none = p1h.clone()
+        none[:, 5] = 0                                  # a column with no 1
+        with pytest.raises(ValueError, match="column 5 holds 0 nonzero"):
+            nt.parent_index(none)
+        two = p1h.clone()
+        two[:, 3] = 0
+        two[0, 3] = two[1, 3] = 1                       # a column with two
+        with pytest.raises(ValueError, match="column 3 holds 2 nonzero"):
+            nt.parent_index(two)
+        half = p1h.clone()
+        half[nfa.tables.in_state[4], 4] = 0.5           # one entry, not 1
+        with pytest.raises(ValueError, match="column 4 holds 0.5"):
+            nt.parent_index(half)
+        with pytest.raises(ValueError, match=r"\(S, S\)"):
+            nt.parent_index(p1h[:, :-1])
 
     def test_wrapper_checks_inputs_and_counts_nothing_on_cpu(self):
         dtd, d, qs, nfa = workload(n_queries=8, seed=1)
-        args = [torch.from_numpy(x) for x in
-                transition_inputs(pad_states(nfa, 128), 5, seed=1)]
+        args = port_args(transition_inputs(pad_states(nfa, 128), 5, seed=1))
         before = nt.nfa_transition.launches
         assert nt.nfa_transition(*args).shape == args[0].shape
         assert nt.nfa_transition.launches == before
@@ -124,8 +179,10 @@ class TestNfaTransition:
             call(1, args[1].long())
         with pytest.raises(ValueError, match="tags has shape"):
             call(1, args[1][:3])
-        with pytest.raises(ValueError, match="parent_1h has shape"):
+        with pytest.raises(ValueError, match="parent_idx has shape"):
             call(4, args[4][:-1])
+        with pytest.raises(TypeError, match="parent_idx must be torch.int32"):
+            call(4, args[4].float())
         with pytest.raises(ValueError, match="contiguous"):
             call(0, args[0].t().contiguous().t())
         with pytest.raises(ValueError, match="is on meta"):

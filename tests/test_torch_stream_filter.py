@@ -309,3 +309,27 @@ class TestWrappers:
                                max_depth=4)
         assert (sf.stream_filter.launches,
                 sf.stream_filter_bytes.launches) == (k1, k2)
+
+    @pytest.mark.parametrize("blk", [32, 256, 2048])
+    def test_plans_meet_the_gather_contract(self, blk):
+        """The kernels gather one entry per state a tag can switch on:
+        every plan's states are in all tag rows (wildcards) or in at most
+        one.  A table that breaks it is refused when the plan is checked,
+        naming the bit."""
+        dtd, d, qs, nfa = workload(n_queries=64, seed=blk, p_wild=0.3)
+        jplan = jax_kernel_plan(nfa, d, blk=blk)
+        tables = {k: np.asarray(v) for k, v in jplan.tables.items()}
+        tagmask = tables["kb_tagmask"].view(np.uint32)
+        always = np.bitwise_and.reduce(tagmask, axis=1)
+        assert always.any() and (tagmask & ~always[:, None]).any()
+        sf.check_block_tables(tables)
+        word = int(np.argmin(always[0]))                # a word not all wild
+        free = int(np.nonzero((~always[0][word] >> np.arange(32)) & 1)[0][0])
+        bad = tagmask.copy()
+        bad[0, :2, word] |= np.uint32(1 << free)        # in two rows, not all
+        with pytest.raises(ValueError, match=f"block 0 word {word} bit "
+                                             f"{free} is set in"):
+            sf.check_block_tables({**tables, "kb_tagmask": bad})
+        with pytest.raises(ValueError, match="is set in"):
+            convert.plan_from_numpy({**tables, "kb_tagmask": bad},
+                                    jplan.meta, "cpu")
