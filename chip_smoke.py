@@ -37,10 +37,10 @@ printed as it runs; any failure exits non-zero:
    the fused path with no overflow; with ``match_cap=64`` each overflows
    to the dense kernels (K3 then K2, K4 then K1).  Every route must equal
    the dense stage's;
-5. times: each kernel (CUDA events, after a warm-up; K6 from a CUDA
-   graph of launches, since a wavefront step's kernel is shorter than its
-   launch) and its plain version at the shapes its main path gives it,
-   where their outputs must be equal too; the least time the card could
+5. times: each kernel (CUDA events, after a warm-up; K5 and K6 from a
+   CUDA graph of launches, since their kernels are about as short as a
+   launch; K5 also one by one) and its plain version at the shapes its
+   main path gives it, where their outputs must be equal too; the least time the card could
    take for the same work; K2's split (the same bytes with no tag: the
    front end alone; K1 on the same documents: the chain alone) and every
    chain kernel's time an event of its longest chain; for K6 also
@@ -57,7 +57,27 @@ printed as it runs; any failure exits non-zero:
    with ``torch.matmul`` and with gather and compare, and the bool
    wavefront, none of which launches K6.  Each request's time is split
    into parse, host bucketing and K6;
-7. one ``{"kernels": [...]}`` line, the card line, and the result line.
+7. serving at the streaming plan: ``ServeLoop(FilterStage(sparse=True,
+   batch_size=16, engine_options={"match_cap": 7168}), max_batch=16,
+   deadline_ms=2, max_inflight=3, queue_cap=256)``, its workers each on a
+   CUDA stream of their own.  (a) 1,024 requests of phase 4's messages,
+   cycled, under Poisson arrivals at 4,000/s (seed 0): every delivered
+   request must route as ``FilterStage.route_bytes`` (K3); p50/p99/p999
+   latency, shed, batch fill, close reasons, docs/s.  (b) phase 3's 64
+   documents of 1 MB, back to back with ``overload="block"``, at
+   ``max_inflight`` 1 and 3 with ``validate=False`` (the host's
+   pre-admission check of a 1 MB document, timed alone, takes longer
+   than its share of K2), then at 3 with it: routes as phase 3 (K2),
+   docs/s, and whether two batches' K2 launches overlapped on the card
+   (CUDA events on the worker streams).  (c) (a)'s loop on a trace 16 times as long, with
+   ``loop.subscribe`` of a new profile and ``loop.unsubscribe(0)`` at
+   fixed points (a shadow build at full width takes about as long as
+   (a)'s whole trace): each request must
+   route as a synchronous stage built on the live set of the epoch it was
+   filtered under; shadow build seconds.  (d) a malformed and an 80-deep
+   payload in (a)'s trace: rejected at admission with
+   ``MalformedDocument`` and ``DepthOverflow``, dead-lettered;
+8. one ``{"kernels": [...]}`` line, the card line, and the result line.
 """
 from __future__ import annotations
 
@@ -93,6 +113,19 @@ SPARSE_CAP, OVERFLOW_CAP, PAST_BUDGET_CAP = 7168, 64, 160_000
 # documents through the wavefront engine and 1 through the levelwise
 LEVEL_PROFILES, LEVEL_REQUESTS, LEVEL_CHUNK = 1024, 2, 128
 
+# phase 7, serving: ServeLoop(max_batch=16, deadline_ms=2, max_inflight=3,
+# queue_cap=256) at 4,000 requests/s (about half the synchronous sparse
+# stage's docs/s on the H100), poison at fixed points of (a)'s trace.  A
+# shadow build at this width recompiles all 10,000 profiles (a few tenths
+# of a second on the host, about (a)'s whole 0.26 s trace), so the churn
+# runs on a trace of 16 of (a)'s lengths at the same rate: both swaps
+# commit inside it and every epoch serves requests
+SERVE_REQUESTS, SERVE_RATE_HZ = 1024, 4000.0
+SERVE_DEADLINE_MS, SERVE_QUEUE_CAP = 2, 256
+SERVE_DENSE_RUNS = ((1, False), (3, False), (3, True))  # depth, validate
+POISON_AT, POISON_DEPTH = (100, 700), 80
+SERVE_CHURN_REQUESTS, SUBSCRIBE_AT, UNSUBSCRIBE_AT = 16_384, 0, 1024
+
 # card peaks (H100 SXM data sheet): HBM bytes/s, the 32-bit non-tensor
 # rate, which bounds the kernels' integer bit operations and K6's float32
 # arithmetic, and the dense bf16 tensor-core rate (the line a tensor-core
@@ -112,6 +145,10 @@ K6_OPS_PER_OUTPUT = 5
 # per lane of each emitted (document, block): 2 (the hit test, its rank)
 OPS_PER_SOURCE_BIT, OPS_PER_WORD, OPS_PER_CLOSE, OPS_PER_BYTE = 4, 4, 1, 12
 OPS_PER_EMITTED_LANE = 2
+# K5's time at the phase-5 shape with its first design (a thread a
+# position), one by one between CUDA events, from this script on an H100
+# 80GB HBM3 at 700 W
+K5_BEFORE_MS = 0.0920
 SOURCE = "src/repro_torch/kernels/csrc/stream_filter.cu"
 KERNELS = (  # id, name, source, replaced TPU kernel
     ("K2", "stream_filter_bytes", SOURCE,
@@ -565,7 +602,7 @@ def main_path(d, qs, bufs, dev):
     say("parse then lane-compact densifies to the dense verdicts")
     return dict(stage=stage, payloads=payloads, streams=streams,
                 e2e_s=e2e_s, n_bytes=n_bytes, launches=launches,
-                stats=stats, mem=mem, parse_mem=parse_mem)
+                stats=stats, mem=mem, parse_mem=parse_mem, routes=a)
 
 
 # ----------------------------------------------------------------- phase 4
@@ -772,15 +809,22 @@ def times(run, short, tables, lane_cls, errs, dev) -> dict:
             f"{ms * 1e6 / chain:.1f} ns an event of the longest chain")
 
 
-    # K5 where its main path runs it: the 1 MB request's parse
-    k5, k5_out = time_ms(lambda: pd.predecode(data), warmup=1, reps=5)
+    # K5 where its main path runs it: the 1 MB request's parse.  Device
+    # time from a CUDA graph of launches (a call's host time is close to
+    # the kernel's), and one by one between CUDA events
+    k5_events, k5_out = time_ms(lambda: pd.predecode(data), warmup=1, reps=5)
+    k5 = graph_ms(lambda: pd.predecode(data), reps=20)
     p5, p5_out = time_ms(lambda: ref.predecode(data), warmup=1, reps=5)
     errs["K5"] = max(errs["K5"], max_abs_err(k5_out, p5_out))
     check(errs["K5"] == 0, "K5 disagrees with its plain version at 1 MB")
     out["K5"] = (k5, p5) + bound(9 * data.numel(), OPS_PER_BYTE * data.numel())
-    say(f"K5 kernel, bytes {tuple(data.shape)}: {k5:.4f} ms, plain "
-        f"{p5:.3f} ms; bound {out['K5'][2]:.4f} ms ({out['K5'][3]}); "
-        f"{data.numel() / k5 / 1e6:.1f} GB/s of bytes")
+    say(f"K5 kernel, bytes {tuple(data.shape)}: {k5:.4f} ms (CUDA graph of "
+        f"20; {k5_events:.4f} ms launched one by one) against "
+        f"{K5_BEFORE_MS} ms with its first design (one by one), "
+        f"expected 0.044-0.055 ms; {out['K5'][2] / k5 * 100:.1f} % of its "
+        f"bound {out['K5'][2]:.4f} ms ({out['K5'][3]}); plain {p5:.3f} ms; "
+        f"{9 * data.numel() / k5 / 1e6:.1f} GB/s moved")
+    out["K5_events"] = k5_events
 
     # K3/K4 where their main path runs them: a request of short messages
     sbb, sdata, sstarts, srows, sbatch, sevents = request_inputs(
@@ -995,6 +1039,315 @@ def level_phase(dtd, d, bufs, layout, k6, dev) -> dict:
     return out
 
 
+# ----------------------------------------------------------------- phase 7
+class LaunchLog:
+    """For the length of a ``with``, wrap one kernel wrapper of
+    ``repro_torch.kernels.stream_filter`` so that each launch records two
+    CUDA events on the stream it was launched on.  The wrapped function
+    still counts its launches; the log shows which streams launched and
+    whether two launches overlapped on the card."""
+
+    def __init__(self, name: str):
+        self.name, self.rows = name, []
+
+    def __enter__(self):
+        from repro_torch.kernels import stream_filter as sf
+
+        self.orig = orig = getattr(sf, self.name)
+        torch.cuda.synchronize()
+        self.origin = torch.cuda.Event(enable_timing=True)
+        self.origin.record()
+
+        def logged(*args, **kwargs):
+            stream = torch.cuda.current_stream()
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+            out = orig(*args, **kwargs)
+            stop.record(stream)
+            self.rows.append((stream.cuda_stream, start, stop))
+            return out
+
+        logged.launches = 0
+        setattr(sf, self.name, logged)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import stream_filter as sf
+
+        # the wrapper counts its launches under its module name, which was
+        # the logging function's while the log was on: hand them back
+        self.orig.launches += getattr(sf, self.name).launches
+        setattr(sf, self.name, self.orig)
+
+    def summary(self) -> dict:
+        """Streams used, kernel ms summed, ms of the card covered by at
+        least one launch, and whether any two launches overlapped."""
+        torch.cuda.synchronize()
+        spans = sorted((self.origin.elapsed_time(a),
+                        self.origin.elapsed_time(b))
+                       for _, a, b in self.rows)
+        busy, overlapped, end = 0.0, False, float("-inf")
+        for a, b in spans:
+            overlapped |= a < end
+            busy += max(0.0, b - max(a, end))
+            end = max(end, b)
+        default = torch.cuda.default_stream().cuda_stream
+        streams = {row[0] for row in self.rows}
+        return {"launches": len(spans), "streams": len(streams),
+                "on_default_stream": default in streams,
+                "kernel_ms": sum(b - a for a, b in spans), "busy_ms": busy,
+                "overlapped": overlapped}
+
+
+def nested(d, depth: int) -> bytes:
+    return (b"".join(d.open_bytes(0) for _ in range(depth))
+            + b"".join(d.close_bytes(0) for _ in range(depth)))
+
+
+def matched_gids(stage, payloads) -> list[tuple[int, ...]]:
+    """Each payload's matched global ids under ``stage.route_bytes``,
+    through the stage's live gids."""
+    out = [set() for _ in payloads]
+    for batch in stage.route_bytes(payloads):
+        for r in batch:
+            out[r.doc_index] |= set(int(g) for g in r.matched_profiles)
+    return [tuple(sorted(x)) for x in out]
+
+
+def ticket_gids(ticket) -> tuple[int, ...]:
+    return tuple(sorted(int(g) for rd in ticket.routed
+                        for g in rd.matched_profiles))
+
+
+def serve_summary(what: str, loop, wall_s: float, log: dict, tickets,
+                  arrivals) -> dict:
+    s = loop.slo_summary()
+    out = {k: s[k] for k in ("p50_ms", "p99_ms", "p999_ms", "mean_ms",
+                             "shed", "admitted", "completed", "rejected",
+                             "batch_fill", "size_closes", "deadline_closes",
+                             "flush_closes", "backpressure_waits",
+                             "max_queue_depth", "batches", "served_per_s")}
+    # how far behind its trace the producer submitted: an open-loop trace
+    # that falls behind offers less than its rate
+    t = np.asarray([tk.t_submit for tk in tickets])
+    lag = (t - t[0]) - (np.asarray(arrivals) - arrivals[0])
+    out.update(wall_s=wall_s, docs_per_s=s["completed"] / wall_s,
+               launch_log=log, submit_lag_p50_ms=float(np.median(lag)) * 1e3,
+               submit_lag_max_ms=float(lag.max()) * 1e3)
+    say(f"{what}: p50 {s['p50_ms']:.3f} ms, p99 {s['p99_ms']:.3f} ms, "
+        f"p999 {s['p999_ms']:.3f} ms (host clock, admission to verdict); "
+        f"shed {s['shed']} of {s['arrived']} ({s['shed_rate'] * 100:.2f} %), "
+        f"rejected {s['rejected']}; batch fill {s['batch_fill']:.3f}; "
+        f"closes: size {s['size_closes']}, deadline {s['deadline_closes']}, "
+        f"flush {s['flush_closes']}; backpressure waits "
+        f"{s['backpressure_waits']}, max queue depth {s['max_queue_depth']}; "
+        f"{out['docs_per_s']:.1f} docs/s ({s['completed']} in "
+        f"{wall_s:.3f} s; the producer submitted {out['submit_lag_p50_ms']:.1f} "
+        f"ms behind its trace at the median, {out['submit_lag_max_ms']:.1f} "
+        f"ms at most); {log['launches']} launches on {log['streams']} "
+        f"worker stream(s), kernels {log['kernel_ms']:.3f} ms summed, card "
+        f"busy {log['busy_ms']:.3f} ms, launches overlapped: "
+        f"{log['overlapped']}")
+    check(not log["on_default_stream"],
+          f"{what}: a kernel launched on the default stream, not a worker's")
+    return out
+
+
+def churn_trace(loop, payloads, arrivals, ops):
+    """:func:`run_trace` with reconfigurations: ``ops[i]`` is called with
+    the loop just before request ``i`` is submitted; returns the tickets
+    and the reconfiguration tickets."""
+    t0 = time.monotonic()
+    tickets, reconfig = [], []
+    for i, (payload, due) in enumerate(zip(payloads, arrivals)):
+        if i in ops:
+            reconfig.append(ops[i](loop))
+        lag = due - (time.monotonic() - t0)
+        if lag > 0:
+            time.sleep(lag)
+        tickets.append(loop.submit(payload))
+    return tickets, reconfig
+
+
+def serve_phase(dtd, d, qs, run, short, dev) -> dict:
+    """Phase 7: the serve loop at full width, its workers on streams."""
+    from repro_torch.core.events import DepthOverflow, MalformedDocument
+    from repro_torch.data.filter_stage import FilterStage
+    from repro_torch.serve import (ServeLoop, poisson_arrivals,
+                                   replay_arrivals, run_trace)
+
+    msgs = short["payloads"]
+    say(f"phase 7: serving, ServeLoop over the {N_PROFILES}-profile plan; "
+        f"{SERVE_REQUESTS} requests of {len(msgs)} messages cycled at "
+        f"{SERVE_RATE_HZ:.0f}/s (Poisson, seed 0)")
+
+    def sparse_stage(profiles=qs):
+        return FilterStage(profiles=profiles, dictionary=d,
+                           engine="streaming", sparse=True, batch_size=BATCH,
+                           device=str(dev),
+                           engine_options={"match_cap": SPARSE_CAP})
+
+    def loop_of(stage, **kw):
+        return ServeLoop(stage, max_batch=BATCH, deadline_ms=SERVE_DEADLINE_MS,
+                         max_inflight=3, queue_cap=SERVE_QUEUE_CAP, **kw)
+
+    out = {}
+    # (a) sparse pub-sub with (d) two poison payloads in the trace
+    stage = sparse_stage()
+    want = matched_gids(stage, msgs)
+    trace = [msgs[i % len(msgs)] for i in range(SERVE_REQUESTS)]
+    source = list(range(SERVE_REQUESTS))
+    for at, payload in zip(POISON_AT, (d.open_bytes(0),
+                                       nested(d, POISON_DEPTH))):
+        trace.insert(at, payload)
+        source.insert(at, -1)
+    arrivals = poisson_arrivals(len(trace), SERVE_RATE_HZ, seed=0)
+
+    def serve_a():
+        with LaunchLog("stream_filter_bytes_sparse") as log:
+            loop = loop_of(stage)
+            t = time.perf_counter()
+            with loop:
+                tickets = run_trace(loop, trace, arrivals)
+            wall = time.perf_counter() - t
+        return loop, tickets, wall, log.summary()
+
+    (loop, tickets, wall, log), _ = drive(
+        "(a) serve loop, sparse pub-sub", serve_a, {"K3"})
+    out["sparse"] = serve_summary("(a) sparse pub-sub", loop, wall, log,
+                                  tickets, arrivals)
+    check(loop.slo_summary()["completed"] > 0, "(a) served nothing")
+    bad = [t for t, src in zip(tickets, source) if src < 0]
+    check([type(t.error).__name__ for t in bad]
+          == ["MalformedDocument", "DepthOverflow"]
+          and isinstance(bad[0].error, MalformedDocument)
+          and isinstance(bad[1].error, DepthOverflow)
+          and all(t.seq == -1 for t in bad),
+          f"(d) poison tickets ended as {[repr(t.error) for t in bad]}")
+    check([(r["seq"], r["error"]) for r in loop.dead_letter]
+          == [(-1, "MalformedDocument"), (-1, "DepthOverflow")],
+          f"(d) dead letters {[(r['seq'], r['error']) for r in loop.dead_letter]}")
+    served = 0
+    for t, src in zip(tickets, source):
+        if src < 0 or t.shed:
+            continue
+        check(t.error is None and t.epoch == 0,
+              f"(a) request {t.seq} ended with {t.error!r}")
+        check(ticket_gids(t) == want[src % len(msgs)],
+              f"(a) request {t.seq} routes differently from route_bytes")
+        served += 1
+    say(f"(a) every one of {served} delivered requests routes as "
+        f"FilterStage.route_bytes; (d) the malformed payload ended "
+        f"{type(bad[0].error).__name__}, the {POISON_DEPTH}-deep one "
+        f"{type(bad[1].error).__name__}, both rejected at admission and "
+        f"dead-lettered")
+
+    # (b) dense 1 MB requests, back to back, one batch in flight then
+    # three.  The pre-admission check is host numpy over every byte, and
+    # at 1 MB it takes longer than a document's share of K2, so the
+    # producer would set the pace: the two depths run with validate=False
+    # to show the loop itself, then depth 3 once more as users run it
+    from repro_torch.core.events import validate_payload
+
+    t = time.perf_counter()
+    for payload in run["payloads"][:BATCH]:
+        validate_payload(payload)
+    out["validate_ms"] = (time.perf_counter() - t) / BATCH * 1e3
+    say(f"(b) validate_payload of a 1 MB document: {out['validate_ms']:.2f} "
+        f"ms on the host, against K2's {BATCH} documents a launch")
+    out["dense"] = {}
+    for k, validate in SERVE_DENSE_RUNS:
+        def serve_b():
+            with LaunchLog("stream_filter_bytes") as log:
+                loop = ServeLoop(run["stage"], max_batch=BATCH,
+                                 deadline_ms=SERVE_DEADLINE_MS,
+                                 max_inflight=k, queue_cap=len(run["payloads"]),
+                                 overload="block", validate=validate)
+                t = time.perf_counter()
+                with loop:
+                    tickets = run_trace(loop, run["payloads"],
+                                        replay_arrivals(len(run["payloads"])))
+                wall = time.perf_counter() - t
+            return loop, tickets, wall, log.summary()
+
+        what = f"max_inflight={k}, validate={validate}"
+        (loop, tickets, wall, log), _ = drive(
+            f"(b) serve loop, dense 1 MB, {what}", serve_b, {"K2"})
+        out["dense"][what] = serve_summary(
+            f"(b) dense 1 MB, {what}", loop, wall, log, tickets,
+            replay_arrivals(len(run["payloads"])))
+        got = [(rd.doc_index, rd.shard, tuple(rd.matched_profiles.tolist()))
+               for t in tickets for rd in t.routed]
+        check(got == run["routes"], f"(b) {what} routes differently from "
+                                    f"phase 3")
+        say(f"(b) {what}: routes as phase 3's route_bytes")
+
+    # (c) churn: a subscribe and an unsubscribe at fixed points of a longer
+    # trace, each request held against the live set of its epoch
+    hits = np.bincount(np.concatenate(
+        [np.asarray(g, np.int64) for g in want if g]), minlength=N_PROFILES)
+    new_q = qs[int(np.argmax(hits))]        # a copy of the busiest profile
+    live = {0: list(range(N_PROFILES)), 1: list(range(N_PROFILES + 1)),
+            2: list(range(1, N_PROFILES + 1))}
+    everyone = list(qs) + [new_q]
+    expect = {0: want}
+    for epoch in (1, 2):
+        gids = np.asarray(live[epoch])
+        local = matched_gids(sparse_stage([everyone[g] for g in gids]), msgs)
+        expect[epoch] = [tuple(int(gids[i]) for i in x) for x in local]
+    check(any(N_PROFILES in x for x in expect[1]),
+          "the new profile matches no message")
+    churn = [msgs[i % len(msgs)] for i in range(SERVE_CHURN_REQUESTS)]
+    ops = {SUBSCRIBE_AT: lambda lp: lp.subscribe(new_q),
+           UNSUBSCRIBE_AT: lambda lp: lp.unsubscribe(0)}
+    stage = sparse_stage()
+
+    churn_arrivals = poisson_arrivals(len(churn), SERVE_RATE_HZ, seed=1)
+
+    def serve_c():
+        with LaunchLog("stream_filter_bytes_sparse") as log:
+            loop = loop_of(stage)
+            t = time.perf_counter()
+            with loop:
+                tickets, reconfig = churn_trace(loop, churn, churn_arrivals,
+                                                ops)
+            wall = time.perf_counter() - t
+        return loop, tickets, reconfig, wall, log.summary()
+
+    (loop, tickets, reconfig, wall, log), _ = drive(
+        f"(c) serve loop, sparse pub-sub with churn, {len(churn)} requests",
+        serve_c, {"K3"})
+    out["churn"] = serve_summary("(c) sparse pub-sub with churn", loop, wall,
+                                 log, tickets, churn_arrivals)
+    check([(r.op, r.error, r.gid) for r in reconfig]
+          == [("subscribe", None, N_PROFILES), ("unsubscribe", None, 0)],
+          f"(c) reconfigurations ended {[(r.op, r.error, r.gid) for r in reconfig]}")
+    check([s_["op"] for s_ in loop.swap_log] == ["subscribe", "unsubscribe"],
+          f"(c) swap log {loop.swap_log}")
+    per_epoch = {0: 0, 1: 0, 2: 0}
+    for i, t in enumerate(tickets):
+        if t.shed:
+            continue
+        check(t.error is None and t.epoch in expect,
+              f"(c) request {t.seq}: epoch {t.epoch}, error {t.error!r}")
+        check(ticket_gids(t) == expect[t.epoch][i % len(msgs)],
+              f"(c) request {t.seq} differs from a stage on epoch "
+              f"{t.epoch}'s live set")
+        per_epoch[t.epoch] += 1
+    check(all(per_epoch.values()), f"(c) an epoch served no request: "
+                                   f"{per_epoch}")
+    out["churn"].update(per_epoch=per_epoch,
+                        swaps=[{"op": r.op, "build_s": r.build_s,
+                                "commit_ms": r.commit_s * 1e3}
+                               for r in reconfig])
+    say(f"(c) requests per epoch {per_epoch}, each routed as a synchronous "
+        f"stage on its epoch's live set; swaps: " + "; ".join(
+            f"{r.op} built in {r.build_s:.3f} s, committed in "
+            f"{r.commit_s * 1e3:.3f} ms" for r in reconfig))
+    return out
+
+
 # ------------------------------------------------------------------- main
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1028,10 +1381,11 @@ def main() -> int:
     k6 = k6_times(level_plan, layout, errs, dev)
     del level_plan
     levels = level_phase(dtd, d, bufs, layout, k6, dev)
+    serving = serve_phase(dtd, d, qs, run, short, dev)
 
     s = run["stats"]
     card = card_line()
-    say(f"phase 7: end to end on {card}: {len(run['payloads'])} documents, "
+    say(f"phase 8: end to end on {card}: {len(run['payloads'])} documents, "
         f"{run['n_bytes']} bytes in {run['e2e_s']:.3f} s = "
         f"{len(run['payloads']) / run['e2e_s']:.1f} docs/s, "
         f"{run['n_bytes'] / run['e2e_s'] / 1e6:.1f} MB/s (host clock around "
@@ -1043,7 +1397,13 @@ def main() -> int:
         f"{short['dense_verdict_bytes']}); levelwise engines at "
         f"{LEVEL_PROFILES} profiles: " + "; ".join(
             f"{e} {v['requests'] * BATCH / v['e2e_s']:.2f} docs/s"
-            for e, v in levels.items()))
+            for e, v in levels.items())
+        + f"; serve loop: sparse pub-sub p50 "
+        f"{serving['sparse']['p50_ms']:.3f} / p99 "
+        f"{serving['sparse']['p99_ms']:.3f} ms at "
+        f"{serving['sparse']['docs_per_s']:.1f} docs/s, dense 1 MB "
+        + ", ".join(f"{k} {v['docs_per_s']:.1f} docs/s"
+                    for k, v in serving["dense"].items()))
     launches = {**run["launches"], "K3": short["launches"]["K3"],
                 "K4": short["launches"]["K4"],
                 # K6 on both engines' runs; its times are at a wavefront

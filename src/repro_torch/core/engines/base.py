@@ -88,6 +88,16 @@ NOT_PORTED = {
 }
 
 
+def _record_event(device: torch.device):
+    """An event recorded on ``device``'s current stream (``None`` off the
+    card): later work on any stream can wait for what came before it."""
+    if device.type != "cuda":
+        return None
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(device))
+    return event
+
+
 # ----------------------------------------------------------------- the plan
 class FilterPlan:
     """Frozen plan: named tables + static metadata.
@@ -165,6 +175,19 @@ class FilterEngine(abc.ABC):
         self.options = options
         self.n_queries = nfa.n_queries
         self.plan_: FilterPlan = self.plan(nfa)
+        # the plan's tables were copied to the card on this thread's
+        # current stream; a reader on another stream waits for this
+        self._plan_ready = _record_event(self.device)
+
+    def wait_plan(self) -> None:
+        """Make the current stream wait until the plan's tables are on
+        the device.  A serve-loop worker filters on a stream of its own,
+        and an engine built by the shadow builder copied its tables on
+        the builder's; the wait orders the two on the card, with no host
+        synchronisation.  Nothing to wait for off the card."""
+        if self._plan_ready is not None:
+            torch.cuda.current_stream(self.device).wait_event(
+                self._plan_ready)
 
     # ------------------------------------------------------------ contract
     @abc.abstractmethod

@@ -27,6 +27,8 @@ classes to subscribers follow each launch.
 """
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
@@ -133,6 +135,8 @@ class StreamingEngine(base.FilterEngine):
                  max_depth: int = DEFAULT_MAX_DEPTH, *,
                  device: str | torch.device = "cuda", **options) -> None:
         self.max_depth = int(max_depth)
+        self._memo_lock = threading.Lock()
+        self._lane_cache: dict = {}
         known = set(TUNABLE_KEYS) | set(CALL_KEYS)
         unknown = sorted(set(options) - known - set(base.NOT_PORTED))
         if unknown:
@@ -256,15 +260,34 @@ class StreamingEngine(base.FilterEngine):
     def _lane_memo(self, obj, build):
         """Tiny identity-keyed memo for per-plan lane-class tables (plans
         are frozen, so identity is validity; bounded so replaced plans do
-        not pin memory)."""
-        cache = self.__dict__.setdefault("_lane_cache", {})
-        hit = cache.get(id(obj))
-        if hit is not None and hit[0] is obj:
-            return hit[1]
-        val = build()
-        if len(cache) >= 8:
-            cache.pop(next(iter(cache)))
-        cache[id(obj)] = (obj, val)
+        not pin memory).
+
+        The serve loop's workers call it at the same time: a miss builds
+        outside the lock and inserts under it (a racing build of the same
+        plan is equal and dropped).  ``build`` returns ``(tensor, host
+        tables...)``; the tensor is made on the builder's stream, so each
+        reader's stream waits for it and is recorded as a user of it, and
+        its memory is not reused while a reader's kernels may still read
+        it."""
+        with self._memo_lock:
+            hit = self._lane_cache.get(id(obj))
+        if hit is None or hit[0] is not obj:
+            val = build()
+            hit = (obj, val, base._record_event(val[0].device))
+            with self._memo_lock:
+                cache = self._lane_cache
+                old = cache.get(id(obj))
+                if old is not None and old[0] is obj:
+                    hit = old
+                else:
+                    if len(cache) >= 8:
+                        cache.pop(next(iter(cache)))
+                    cache[id(obj)] = hit
+        _, val, ready = hit
+        if ready is not None:
+            stream = torch.cuda.current_stream(val[0].device)
+            stream.wait_event(ready)
+            val[0].record_stream(stream)
         return val
 
     def _plain_lane_tables(self, plan: base.FilterPlan):

@@ -1,6 +1,7 @@
 # Subset of src/repro/core/events.py (the port imports nothing of the JAX
 # package): event streams, event/byte batches, segment packing, the byte
-# codec and the document error taxonomy; batches hold numpy arrays or, once
+# codec, the document error taxonomy and the serve loop's pre-admission
+# check (validate_payload); batches hold numpy arrays or, once
 # parsed on a device, torch tensors.
 """Document event streams and the fixed-width byte codec.
 
@@ -638,6 +639,64 @@ def _sym_table() -> np.ndarray:
     if _SYM_TABLE is None:
         _SYM_TABLE = TagDictionary().symbol_value_table()
     return _SYM_TABLE
+
+
+def validate_payload(buf: bytes, *, max_depth: int = DEFAULT_MAX_DEPTH,
+                     doc_index: int | None = None) -> None:
+    """Cheap host-side pre-admission check for one wire payload.
+
+    The serve loop's first failure domain (:meth:`repro.serve.loop.
+    ServeLoop.submit`): known-bad bytes are rejected with a typed
+    :class:`DocumentError` *before* they are batched with healthy
+    documents or reach a kernel.  Vectorized numpy only — a handful of
+    cumsums over the byte buffer, no per-event Python:
+
+    * a ``<`` / ``</`` marker whose symbol bytes are outside the
+      64-symbol alphabet (the kernel would silently drop it, skewing
+      structure) → :class:`MalformedDocument`;
+    * close-without-open or unclosed elements (depth scan goes negative
+      / ends above zero) → :class:`MalformedDocument`;
+    * nesting beyond ``max_depth`` (parent pointers past the parser's
+      bounded stack would be wrong) → :class:`DepthOverflow`.
+
+    An empty payload is *valid*: zero bytes decode to zero events, the
+    inert document every batch-padding path already relies on.  Checks
+    mirror kernel semantics exactly (cf. :func:`decode_bytes`): anything
+    this function admits, the device parser handles deterministically.
+    """
+    idx = () if doc_index is None else (doc_index,)
+    b = np.frombuffer(buf, dtype=np.uint8)
+    n = b.shape[0]
+    if n == 0:
+        return
+    sym = _sym_table()
+    is_lt = b == LT
+    nxt = np.concatenate([b[1:], np.zeros(1, np.uint8)])
+    is_close = is_lt & (nxt == SLASH)
+    is_open = is_lt & ~is_close
+    pos = np.arange(n)
+    s0 = np.where(is_close, pos + 2, pos + 1)
+    s1 = s0 + 1
+    v0 = np.where(s0 < n, sym[b[np.clip(s0, 0, n - 1)]], -1)
+    v1 = np.where(s1 < n, sym[b[np.clip(s1, 0, n - 1)]], -1)
+    ok = (v0 >= 0) & (v1 >= 0)
+    marker = is_open | is_close
+    bad = marker & ~ok
+    if bad.any():
+        where = int(np.flatnonzero(bad)[0])
+        raise MalformedDocument(
+            f"undecodable tag marker at byte {where}", idx)
+    delta = np.where(is_open & ok, 1, 0) - np.where(is_close & ok, 1, 0)
+    depth = np.cumsum(delta)
+    if depth.min(initial=0) < 0:
+        raise MalformedDocument("close tag without matching open", idx)
+    if depth.size and depth[-1] != 0:
+        raise MalformedDocument(f"{int(depth[-1])} unclosed elements", idx)
+    dmax = int(depth.max(initial=0))
+    if dmax > max_depth:
+        raise DepthOverflow(
+            f"document nesting depth {dmax} exceeds max_depth={max_depth}",
+            idx)
 
 
 def event_stream_nbytes(ev: EventStream, text_fill: int = 0) -> int:

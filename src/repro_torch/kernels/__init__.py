@@ -10,4 +10,5 @@
   sparse epilogue and levelwise transition
 * :mod:`.blocks`        -- word-aligned parent-closed state-block layout
 * :mod:`.build`         -- nvcc build and ctypes loader of ``csrc/``
+* :mod:`.launches`      -- the wrappers' launch counts, safe under threads
 """

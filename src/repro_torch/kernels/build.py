@@ -12,6 +12,12 @@ memory and spills; the report is kept beside the library
 ``argtypes``/``restype`` (``ctypes.c_void_p`` for pointers and the
 stream).  Nothing here runs at import: this module imports on machines
 with no ``nvcc`` and no card.
+
+Threads of one process (the serve loop's workers) build and load under
+one lock, so a source is compiled once however many threads miss at the
+same time; each compile writes a temporary file named by process and
+thread and renames it into place, so processes that build at the same
+time never load a torn file.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -69,6 +76,10 @@ SIGNATURES = {
 }
 SOURCES = tuple(CSRC / f"{name}.cu" for name in SIGNATURES)
 
+#: serialises build-and-load within the process (re-entrant: ``load``
+#: builds under it)
+_LOCK = threading.RLock()
+
 
 def nvcc() -> str:
     """Path of the CUDA compiler: ``$PATH``, else ``$CUDA_HOME/bin``."""
@@ -94,13 +105,19 @@ def build(names: tuple[str, ...] | None = None) -> dict[str, Path]:
     """Compile every named source (default: all) that is not built yet,
     one ``nvcc`` each, all started together."""
     names = tuple(SIGNATURES) if names is None else names
+    with _LOCK:
+        return _build(names)
+
+
+def _build(names: tuple[str, ...]) -> dict[str, Path]:
     todo = {n: library_path(n) for n in names}
     running = []
     for name, lib in todo.items():
         if lib.exists():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        tmp = lib.with_suffix(
+            f".{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         running.append((lib, tmp, cmd, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
@@ -124,10 +141,16 @@ def build_log() -> str:
     return "".join(p.read_text() for p in logs if p.exists())
 
 
-@functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load one kernel library, once per process."""
-    lib = ctypes.CDLL(str(build((name,))[name]))
+    """Build (if needed) and load one kernel library, once per process,
+    whatever the number of threads that ask at the same time."""
+    with _LOCK:
+        return _load(name)
+
+
+@functools.lru_cache(maxsize=None)
+def _load(name: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(_build((name,))[name]))
     for fn_name, (argtypes, restype) in SIGNATURES[name].items():
         fn = getattr(lib, fn_name)
         fn.argtypes = argtypes

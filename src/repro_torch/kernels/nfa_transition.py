@@ -29,6 +29,7 @@ import ctypes
 import torch
 
 from . import ref
+from .launches import count_launch
 
 _INT32_MAX = 2 ** 31 - 1
 
@@ -142,7 +143,7 @@ def nfa_transition(parent_rows: torch.Tensor, tags: torch.Tensor,
             ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"nfa_transition launch failed: CUDA error {err}")
-    nfa_transition.launches += 1
+    count_launch(nfa_transition)
     return out
 
 

@@ -18,6 +18,7 @@ import ctypes
 import torch
 
 from . import ref
+from .launches import count_launch
 
 
 def predecode(bytes_: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -50,7 +51,7 @@ def predecode(bytes_: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
             ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"predecode launch failed: CUDA error {err}")
-    predecode.launches += 1
+    count_launch(predecode)
     return kind, tag
 
 

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from . import ref
+from .launches import count_launch
 from .ref import NO_MATCH, PAD, fuse_events  # noqa: F401
 
 #: largest dynamic shared memory one thread block may use on Hopper
@@ -193,7 +194,7 @@ def stream_filter(events: torch.Tensor, tagmask: torch.Tensor,
             int(max_depth), _ptr(matched), _ptr(first),
             _ptr(_scratch(lib, g, n_tags, wb, dev)), ctypes.c_void_p(stream))
     _raise_on(err, "stream_filter")
-    stream_filter.launches += 1
+    count_launch(stream_filter)
     return matched, first
 
 
@@ -280,7 +281,7 @@ def stream_filter_bytes(data: torch.Tensor, starts: torch.Tensor,
             n_tags, wb, qb, int(max_depth), _ptr(matched), _ptr(first),
             _ptr(_scratch(lib, g, n_tags, wb, dev)), ctypes.c_void_p(stream))
     _raise_on(err, "stream_filter_bytes")
-    stream_filter_bytes.launches += 1
+    count_launch(stream_filter_bytes)
     return matched, first
 
 
@@ -447,7 +448,7 @@ def stream_filter_sparse(events: torch.Tensor, doc_ids: torch.Tensor,
             _ptr(count), _ptr(_scratch(lib, g, n_tags, wb, dev)),
             ctypes.c_void_p(stream))
     _raise_on(err, "stream_filter_sparse")
-    stream_filter_sparse.launches += 1
+    count_launch(stream_filter_sparse)
     return buf, count
 
 
@@ -522,7 +523,7 @@ def stream_filter_bytes_sparse(data: torch.Tensor, starts: torch.Tensor,
             _ptr(lane_cls), cap, _ptr(buf), _ptr(count),
             _ptr(_scratch(lib, g, n_tags, wb, dev)), ctypes.c_void_p(stream))
     _raise_on(err, "stream_filter_bytes_sparse")
-    stream_filter_bytes_sparse.launches += 1
+    count_launch(stream_filter_bytes_sparse)
     return buf, count
 
 

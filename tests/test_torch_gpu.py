@@ -10,9 +10,15 @@ The first test builds the kernels (``build/repro_torch/``).  Outputs are
 0/1 lanes, int32 ordinals, int32 match rows and K6's float32 0/1 states
 (gathered values, exact): exact equality, with the
 sparse kernels' rows compared as sorted sets (their order on the card is
-not fixed) and their counts exactly.  The file imports nothing of JAX, so
-it runs where only the port is installed.
+not fixed) and their counts exactly.  K5 is checked on both of its
+paths (16-byte vector, scalar), the serve loop on worker streams against
+the synchronous route, and a hot swap with batches in flight against the
+live set of each batch's epoch.  The file imports nothing of JAX, so it
+runs where only the port is installed.
 """
+import threading
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -451,3 +457,177 @@ def test_level_engines_with_kernel_on_card_equal_cpu(cuda, name, opts):
     for a, b in pairs:
         np.testing.assert_array_equal(b.matched, a.matched)
         np.testing.assert_array_equal(b.first_event, a.first_event)
+
+
+# ------------------------------------------------------ K5, redesigned
+def tag_bytes(rng, shape):
+    """Seeded bytes rich in tags: markers, symbols, filler, bytes outside
+    the alphabet."""
+    alphabet = np.frombuffer(b"<<<</>abcXYZ09_.x >\x00\xff", np.uint8)
+    return torch.from_numpy(rng.choice(alphabet, size=shape)
+                            .astype(np.uint8))
+
+
+@pytest.mark.parametrize("length", [1, 2, 3, 4, 15, 16, 17, 1023, 1024])
+def test_predecode_kernel_row_lengths(cuda, length):
+    """Both paths of K5 against its plain version: L % 4 == 0 takes the
+    word path (row ends inside a warp's span, lane 31's halo from lane 0
+    and from memory), any other L the scalar path."""
+    data = tag_bytes(np.random.default_rng(length), (37, length))
+    before = pd.predecode.launches
+    kk, kt = pd.predecode(data.to(cuda))
+    torch.cuda.synchronize()
+    assert pd.predecode.launches == before + 1
+    pk, pt = pd.predecode(data)
+    assert (pk != 2).any() or length < 3
+    assert torch.equal(kk.cpu(), pk) and torch.equal(kt.cpu(), pt)
+
+
+@pytest.mark.parametrize("offset", [3, 4, 16, 1024])
+def test_predecode_kernel_on_a_view_with_a_storage_offset(cuda, offset):
+    """A contiguous view that starts ``offset`` bytes into its storage:
+    4-byte aligned offsets keep the word path, others take the scalar
+    path; both read only the view's rows."""
+    rows, length = 9, 1024
+    flat = tag_bytes(np.random.default_rng(offset),
+                     (offset + rows * length + 64,))
+    view = flat[offset:offset + rows * length].view(rows, length)
+    assert view.storage_offset() == offset and view.is_contiguous()
+    kk, kt = pd.predecode(flat.to(cuda)[offset:offset + rows * length]
+                          .view(rows, length))
+    pk, pt = pd.predecode(view)
+    torch.cuda.synchronize()
+    assert torch.equal(kk.cpu(), pk) and torch.equal(kt.cpu(), pt)
+
+
+@pytest.mark.parametrize("length", [16, 48, 5])
+def test_predecode_kernel_past_65535_rows(cuda, length):
+    data = tag_bytes(np.random.default_rng(5), (70_001, length))
+    kk, kt = pd.predecode(data.to(cuda))
+    pk, pt = pd.predecode(data)
+    torch.cuda.synchronize()
+    assert torch.equal(kk.cpu(), pk) and torch.equal(kt.cpu(), pt)
+
+
+# ---------------------------------------------------- the serve loop
+def serve_workload(n_docs, seed=0):
+    from repro_torch.data.filter_stage import TEXT_FILL
+
+    dtd = DTD.generate(n_tags=24, seed=seed)
+    d = TagDictionary()
+    dtd.register(d)
+    qs = gen_profiles(dtd, n=16, length=3, seed=seed)
+    raw = [encode_bytes(x, text_fill=TEXT_FILL)
+           for x in gen_corpus(dtd, n_docs=n_docs, nodes_per_doc=40,
+                               seed=1)]
+    return dtd, d, qs, raw
+
+
+def ticket_routes(tickets):
+    return {(rd.doc_index, rd.shard): tuple(int(x) for x in
+                                            rd.matched_profiles)
+            for t in tickets for rd in t.routed}
+
+
+def stage_routes(stage, raw):
+    return {(r.doc_index, r.shard): tuple(int(x) for x in r.matched_profiles)
+            for b in stage.route_bytes(raw) for r in b}
+
+
+@pytest.mark.parametrize("sparse", [False, True], ids=["dense", "sparse"])
+def test_serve_loop_on_card_equals_route_bytes(cuda, sparse):
+    """Three workers, each on its own stream, launch K2 (dense) or K3
+    (sparse) from their threads; every request routes as the synchronous
+    ``route_bytes``."""
+    from repro_torch.data.filter_stage import FilterStage
+    from repro_torch.serve import ServeLoop
+
+    _, d, qs, raw = serve_workload(n_docs=37)
+    kernel = sf.stream_filter_bytes_sparse if sparse \
+        else sf.stream_filter_bytes
+
+    def stage():
+        return FilterStage(qs, d, n_shards=2, keep_unmatched=True,
+                           batch_size=4, device=str(cuda), sparse=sparse)
+
+    before = kernel.launches
+    with ServeLoop(stage(), max_batch=4, deadline_ms=60_000, queue_cap=64,
+                   max_inflight=3) as loop:
+        tickets = [loop.submit(p) for p in raw]
+    assert kernel.launches - before == 10
+    assert loop.slo_summary()["completed"] == len(raw)
+    assert ticket_routes(tickets) == stage_routes(stage(), raw)
+
+
+def swap_with_batches_in_flight(device):
+    """A hot swap that commits while two batches are in flight.
+
+    Batch A (filtered under epoch 0) is held inside the stage's call
+    until the swap is queued behind it, so the completer cannot commit
+    yet; batches C and D are then dispatched and filtered under epoch 0
+    on the other workers.  Releasing A lets the completer resolve A,
+    commit the swap while C and D are still undelivered, and resolve them
+    with epoch 0's gids; batch E, submitted after the commit, is filtered
+    under epoch 1.  Every request's verdicts must equal a synchronous
+    stage built on the live set of its epoch.  Returns the epochs the
+    batches were filtered under, in dispatch order."""
+    from repro_torch.data.filter_stage import FilterStage
+    from repro_torch.serve import ServeLoop
+
+    _, d, qs, raw = serve_workload(n_docs=16, seed=2)
+
+    def stage(profiles):
+        return FilterStage(profiles, d, n_shards=2, keep_unmatched=True,
+                           batch_size=4, device=device)
+
+    before = stage_routes(stage(qs), raw)
+    hits = np.bincount(np.concatenate(
+        [np.asarray(m, np.int64) for m in before.values()]), minlength=16)
+    new_q = qs[int(np.argmax(hits))]        # a profile that matches
+    after = stage_routes(stage(list(qs) + [new_q]), raw)
+
+    st = stage(qs)
+    orig = st._filter_bytebatch
+    release = threading.Event()
+    epochs = []
+
+    def gated(bufs, record=True, epoch=None):
+        epochs.append(epoch.epoch)
+        if bufs[0] == raw[0]:
+            assert release.wait(timeout=120), "batch A was never released"
+        return orig(bufs, record=record, epoch=epoch)
+
+    st._filter_bytebatch = gated
+
+    def wait_for(cond, what):
+        deadline = time.monotonic() + 120
+        while not cond():
+            assert time.monotonic() < deadline, f"never saw {what}"
+            time.sleep(0.005)
+
+    with ServeLoop(st, max_batch=4, deadline_ms=60_000, queue_cap=64,
+                   max_inflight=3) as loop:
+        a = [loop.submit(p) for p in raw[:4]]
+        wait_for(lambda: len(epochs) == 1, "batch A in the stage")
+        tk = loop.subscribe(new_q)
+        wait_for(lambda: any(item is not None and item[0] == "swap"
+                             for item in list(loop._completion)),
+                 "the swap queued")
+        cd = [loop.submit(p) for p in raw[4:12]]
+        wait_for(lambda: len(epochs) == 3, "batches C and D in the stage")
+        release.set()
+        assert tk.done.wait(timeout=120) and tk.error is None
+        e = [loop.submit(p) for p in raw[12:]]
+    assert tk.gid == 16 and loop.swap_log[0]["epoch"] == 1
+    assert epochs == [0, 0, 0, 1]
+    old = {k: v for k, v in before.items() if k[0] < 12}
+    new = {k: v for k, v in after.items() if k[0] >= 12}
+    assert ticket_routes(a + cd) == old
+    assert ticket_routes(e) == new
+    assert [t.epoch for t in a + cd + e] == [0] * 12 + [1] * 4
+    assert any(16 in m for m in new.values())
+    return epochs
+
+
+def test_hot_swap_with_batches_in_flight_on_card(cuda):
+    swap_with_batches_in_flight(str(cuda))
