@@ -77,7 +77,22 @@ printed as it runs; any failure exits non-zero:
    filtered under; shadow build seconds.  (d) a malformed and an 80-deep
    payload in (a)'s trace: rejected at admission with
    ``MalformedDocument`` and ``DepthOverflow``, dead-lettered;
-8. one ``{"kernels": [...]}`` line, the card line, and the result line.
+8. query-sharded plans: (a) ``FilterStage(query_shards=4)`` at the
+   10,000 profiles, every part folded into ONE launch a request (P·G
+   blocks): ``route_bytes`` and ``route`` over phase 3's requests (K2,
+   K1) and, ``sparse=True``, over phase 4's (K3, K4), each equal to the
+   unsharded stage's; the folded K2 and K1 timed at one request's shape,
+   and the folded K1 and K4 against their plain versions with tombstoned
+   columns; (b) churn: subscribe and unsubscribe build seconds and commit
+   ms against the unsharded stage's rebuilds, then skewed churn and
+   ``maybe_rebalance``, each commit routing as a fresh unsharded stage on
+   its live set; (c) ``FilterStage(engine="wavefront", query_shards=2,
+   engine_options={"use_kernel": True})`` at 1,024 profiles over one 1 MB
+   request: K5, then K6 folded over the parts' states once per chunk
+   step, routing as the streaming stage; (d) the chaos drill,
+   ``run_chaos_trace(48)`` on the card with every check passing;
+9. the end-to-end line, one ``{"kernels": [...]}`` line, the card line,
+   and the result line.
 """
 from __future__ import annotations
 
@@ -125,6 +140,14 @@ SERVE_DEADLINE_MS, SERVE_QUEUE_CAP = 2, 256
 SERVE_DENSE_RUNS = ((1, False), (3, False), (3, True))  # depth, validate
 POISON_AT, POISON_DEPTH = (100, 700), 80
 SERVE_CHURN_REQUESTS, SUBSCRIBE_AT, UNSUBSCRIBE_AT = 16_384, 0, 1024
+
+# phase 8, query-sharded plans: the streaming plan in 4 parts (phases 3
+# and 4's requests), then skewed churn -- unsubscribes from the largest
+# part -- and a rebalance at a tolerance the skew exceeds; the levelwise
+# plan in 2 parts over phase 6's first request; the chaos drill at its
+# default 48 requests
+SHARD_PARTS, LEVEL_SHARDS = 4, 2
+SKEW_UNSUBSCRIBES, REBALANCE_TOLERANCE = 400, 0.02
 
 # card peaks (H100 SXM data sheet): HBM bytes/s, the 32-bit non-tensor
 # rate, which bounds the kernels' integer bit operations and K6's float32
@@ -657,7 +680,7 @@ def sparse_phase(dtd, d, qs, dev) -> dict:
         f"verdict bytes {s['verdict_bytes']} against "
         f"{dense_stats['verdict_bytes']} dense; paths {s['paths']}")
     results = {"e2e_s": e2e_s, "n_docs": len(payloads), "n_bytes": n_bytes,
-               "stats": s, "dense_verdict_bytes":
+               "routes": want, "stats": s, "dense_verdict_bytes":
                    dense_stats["verdict_bytes"], "launches": launches,
                "payloads": payloads, "streams": streams}
 
@@ -947,9 +970,11 @@ def k6_times(level_plan, layout, errs, dev) -> dict:
 
 
 # ----------------------------------------------------------------- phase 6
-def level_phase(dtd, d, bufs, layout, k6, dev) -> dict:
+def level_phase(dtd, d, bufs, layout, k6, dev) -> tuple[dict, dict]:
     """Phase 6: the levelwise engines at 1,024 profiles on 1 MB documents,
-    each routing held against the streaming stage's at the same plan."""
+    each routing held against the streaming stage's at the same plan.
+    Returns the engines' numbers and the streaming stage's routes of the
+    first request with the levelwise plan's state count."""
     from repro_torch.core.events import ByteBatch
     from repro_torch.data.filter_stage import FilterStage
 
@@ -977,6 +1002,7 @@ def level_phase(dtd, d, bufs, layout, k6, dev) -> dict:
     for engine, requests, shape in (("wavefront", LEVEL_REQUESTS, "step"),
                                     ("levelwise", 1, "level")):
         st = stage(engine, use_kernel=True)
+        n_states = int(st._eng.plan_.meta["n_states"])
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
@@ -1036,7 +1062,7 @@ def level_phase(dtd, d, bufs, layout, k6, dev) -> dict:
         say(f"{engine} {opts or 'defaults'}: routes as the streaming stage "
             f"in {time.perf_counter() - t:.3f} s")
         torch.cuda.empty_cache()
-    return out
+    return out, {"want_first": want_first, "n_states": n_states}
 
 
 # ----------------------------------------------------------------- phase 7
@@ -1348,6 +1374,235 @@ def serve_phase(dtd, d, qs, run, short, dev) -> dict:
     return out
 
 
+# ----------------------------------------------------------------- phase 8
+def stacked_bytes(sharded) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in sharded.stacked().tables.values())
+
+
+def drive_once(what: str, fn, kernels: dict):
+    """:func:`drive` that also holds each kernel's launch count: one per
+    request, however many parts the plan has."""
+    out, got = drive(what, fn, set(kernels))
+    for k, n in kernels.items():
+        check(got[k] == n, f"{what} launched {k} {got[k]} times, not {n}")
+    return out, got
+
+
+def sharded_phase(dtd, d, qs, bufs, run, short, level_ref, layout, k2_ms,
+                  dev) -> dict:
+    """Phase 8: query-sharded plans on the card, every part in one launch;
+    churn, rebalance, the levelwise engines with K6 folded, and the chaos
+    drill."""
+    from repro_torch.data.filter_stage import FilterStage
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import stream_filter as sf
+    from repro_torch.serve.faults import run_chaos_trace
+
+    say(f"phase 8: query-sharded plans, {SHARD_PARTS} parts of the "
+        f"{N_PROFILES}-profile plan in one launch each")
+    out = {}
+
+    def stage(profiles=qs, **kw):
+        return FilterStage(profiles=profiles, dictionary=d,
+                           engine="streaming", batch_size=BATCH,
+                           device=str(dev), **kw)
+
+    # (a) the streaming stage, dense and sparse, events and bytes
+    t = time.perf_counter()
+    dense = stage(query_shards=SHARD_PARTS)
+    torch.cuda.synchronize()
+    out["plan_s"] = time.perf_counter() - t
+    sp = dense.sharded_
+    g1 = int(run["stage"]._eng.plan_.meta["n_blocks"])
+    g = int(sp.stacked().meta["n_blocks"])
+    out.update(parts=SHARD_PARTS, blocks_per_part=g, folded_blocks=
+               SHARD_PARTS * g, unsharded_blocks=g1,
+               stacked_bytes=stacked_bytes(sp), pads=sp.pads)
+    say(f"(a) sharded plan in {out['plan_s']:.2f} s (the engine's full plan "
+        f"included): pads {sp.pads}, part sizes {sp.part_sizes().tolist()}, "
+        f"imbalance {sp.imbalance():.4f}; {SHARD_PARTS} x {g} = "
+        f"{SHARD_PARTS * g} folded blocks against the unsharded {g1}; "
+        f"stacked tables {out['stacked_bytes']} bytes on the card")
+    list(dense.route_bytes(run["payloads"][:BATCH]))     # warm-up request
+    got, launches = drive_once(
+        "(a) sharded route_bytes (dense)",
+        lambda: routed(dense.route_bytes(run["payloads"])), {"K2": REQUESTS})
+    check(got == run["routes"], "(a) the sharded dense route differs from "
+                                "the unsharded stage's (phase 3)")
+    out["launches"] = dict(launches)
+    got, launches = drive_once(
+        "(a) sharded route (host-decoded events, dense)",
+        lambda: routed(dense.route(run["streams"])), {"K1": REQUESTS})
+    check(got == run["routes"], "(a) the sharded events route differs from "
+                                "phase 3's")
+    out["launches"]["K1"] = launches["K1"]
+    sparse = stage(query_shards=SHARD_PARTS, sparse=True,
+                   engine_options={"match_cap": SPARSE_CAP})
+    for what, ingest, kernel in (("route_bytes", "bytes", "K3"),
+                                 ("route", "events", "K4")):
+        got, launches = drive_once(
+            f"(a) sharded sparse {what}", lambda: routed(
+                sparse.route_bytes(short["payloads"]) if ingest == "bytes"
+                else sparse.route(short["streams"])), {kernel: REQUESTS})
+        check(got == short["routes"], f"(a) the sharded sparse {what} "
+                                      f"differs from the dense stage's")
+        out["launches"][kernel] = launches[kernel]
+    check(sparse.stats["paths"] == {"kernel-fused": 2 * REQUESTS},
+          f"(a) sharded sparse paths {sparse.stats['paths']}")
+    say("(a) every sharded route equals the unsharded stage's, one launch "
+        "a request")
+
+    # the folded kernels at one request's shapes: K2 and K1 on the 1 MB
+    # request (times), K1 and K4 on a short request against their plain
+    # versions, over lanes with tombstoned columns
+    stacked = dense.sharded_.stacked()
+    folded = dense._eng._folded(stacked)
+    bb, data, starts, rows, batch, events = request_inputs(
+        run["payloads"], run["streams"], run["stage"], dev)
+    out["K2_ms"], k2_out = time_ms(lambda: sf.stream_filter_bytes(
+        data, starts, *folded, max_depth=MAX_DEPTH), warmup=1, reps=5)
+    out["K1_ms"], _ = time_ms(lambda: sf.stream_filter(
+        events, *folded, max_depth=MAX_DEPTH), warmup=1, reps=5)
+    say(f"(a) folded K2 ({SHARD_PARTS * g} blocks) {out['K2_ms']:.3f} ms a "
+        f"request against phase 5's unsharded K2 in this run, "
+        f"{k2_ms:.3f} ms ({out['K2_ms'] / k2_ms:.3f} x; "
+        f"expected within +-25 % of 26.46 ms); folded K1 "
+        f"{out['K1_ms']:.3f} ms")
+    tomb = dense.sharded_.remove_queries(list(range(0, N_PROFILES, 7)))
+    lane_cls = dense._eng._sharded_lane_tables(tomb)[0].flatten(0, 1)
+    sbb, sdata, sstarts, srows, sbatch, sevents = request_inputs(
+        short["payloads"], short["streams"], run["stage"], dev)
+    k1 = sf.stream_filter(sevents, *folded, max_depth=MAX_DEPTH)
+    p1 = sf.stream_filter_plain(sevents, *folded, max_depth=MAX_DEPTH)
+    k4 = sf.stream_filter_sparse(sevents, srows, *folded, lane_cls,
+                                 cap=SPARSE_CAP, max_depth=MAX_DEPTH)
+    p4 = ref.sparse_epilogue(*p1, lane_cls, srows, SPARSE_CAP)
+    out["max_abs_err"] = {"K1": max_abs_err(k1, p1),
+                          "K4": sparse_err(k4, p4, "folded K4")}
+    check(out["max_abs_err"] == {"K1": 0, "K4": 0},
+          f"(a) folded kernels disagree with their plain versions: "
+          f"{out['max_abs_err']}")
+    say(f"(a) folded K1 and K4 on a short request ({tuple(sevents.shape)} "
+        f"events, {int(p4[1][0])} rows, every 7th profile tombstoned) equal "
+        f"their plain versions")
+    del k2_out, k1, p1, k4, p4
+
+    # (b) churn on the sharded stage, against the unsharded stage's
+    # rebuild; after each commit the stage routes as a fresh unsharded
+    # stage on its live set
+    hits = np.bincount(np.concatenate(
+        [np.asarray(r[2], np.int64) for r in short["routes"]]),
+        minlength=N_PROFILES)
+    new_q = qs[int(np.argmax(hits))]
+
+    def live_routes(st):
+        gids = sorted(st._live)
+        fresh = stage([st._live[g] for g in gids])
+        want = routed(fresh.route_bytes(short["payloads"]))
+        return [(doc, shard, tuple(gids[i] for i in m))
+                for doc, shard, m in want]
+
+    def timed_commit(st, pending):
+        t0 = time.perf_counter()
+        st.commit(pending)
+        return (time.perf_counter() - t0) * 1e3
+
+    churn = {}
+    mono = run["stage"]
+    t0 = time.perf_counter()
+    pending = mono.prepare_subscribe(new_q)
+    torch.cuda.synchronize()
+    churn["unsharded_subscribe_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pending_u = mono.prepare_unsubscribe(0)
+    torch.cuda.synchronize()
+    churn["unsharded_unsubscribe_s"] = time.perf_counter() - t0
+    del pending, pending_u
+    for op, make in (("subscribe", lambda: dense.prepare_subscribe(new_q)),
+                     ("unsubscribe", lambda: dense.prepare_unsubscribe(0))):
+        t0 = time.perf_counter()
+        pending = make()
+        torch.cuda.synchronize()
+        churn[f"{op}_s"] = time.perf_counter() - t0
+        churn[f"{op}_commit_ms"] = timed_commit(dense, pending)
+        check(routed(dense.route_bytes(short["payloads"]))
+              == live_routes(dense), f"(b) after the {op} the sharded stage "
+                                     f"routes differently from a fresh stage")
+    say(f"(b) subscribe built in {churn['subscribe_s']:.3f} s, committed in "
+        f"{churn['subscribe_commit_ms']:.3f} ms; unsubscribe built in "
+        f"{churn['unsubscribe_s']:.3f} s, committed in "
+        f"{churn['unsubscribe_commit_ms']:.3f} ms; the unsharded stage's "
+        f"rebuilds in this run: {churn['unsharded_subscribe_s']:.3f} s and "
+        f"{churn['unsharded_unsubscribe_s']:.3f} s (expected 0.05-0.12 s "
+        f"and under 5 ms of host time); each routes as a fresh stage on its "
+        f"live set")
+    last = int(np.argmax(dense.sharded_.part_sizes()))
+    drop = [int(x) for x in dense.sharded_.live_ids()
+            if int(dense.sharded_.partition.part_of[x]) == last]
+    t0 = time.perf_counter()
+    for x in drop[:SKEW_UNSUBSCRIBES]:
+        dense.unsubscribe(x)
+    churn["skew_s"] = time.perf_counter() - t0
+    imb = dense.sharded_.imbalance()
+    t0 = time.perf_counter()
+    stats = dense.maybe_rebalance(tolerance=REBALANCE_TOLERANCE)
+    torch.cuda.synchronize()
+    churn["rebalance_s"] = time.perf_counter() - t0
+    churn["rebalance"] = stats
+    check(stats["moves"] > 0 and dense.sharded_.imbalance() < imb,
+          f"(b) the rebalance after skewed churn moved nothing: {stats}")
+    check(routed(dense.route_bytes(short["payloads"])) == live_routes(dense),
+          "(b) after the rebalance the sharded stage routes differently")
+    say(f"(b) {SKEW_UNSUBSCRIBES} unsubscribes from part {last} in "
+        f"{churn['skew_s']:.2f} s took the imbalance to {imb:.4f}; "
+        f"maybe_rebalance(tolerance={REBALANCE_TOLERANCE}) in "
+        f"{churn['rebalance_s']:.3f} s: {stats}; routes as a fresh stage")
+    out["churn"] = churn
+    del dense, sparse, tomb
+    torch.cuda.empty_cache()
+
+    # (c) the wavefront engine with K6 folded over the parts' states
+    lqs = level_profiles(dtd)
+    payloads = request_payloads(bufs, 1)
+    st = FilterStage(profiles=lqs, dictionary=d, engine="wavefront",
+                     batch_size=BATCH, device=str(dev),
+                     query_shards=LEVEL_SHARDS,
+                     engine_options={"use_kernel": True})
+    s_part = int(st.sharded_.stacked().meta["n_states"])
+    t0 = time.perf_counter()
+    got, launches = drive_once(
+        f"(c) sharded wavefront route_bytes use_kernel=True, 1 request",
+        lambda: routed(st.route_bytes(payloads)),
+        {"K5": 1, "K6": layout["chunks"]})
+    out["level"] = {"parts": LEVEL_SHARDS, "states_per_part": s_part,
+                    "folded_states": LEVEL_SHARDS * s_part,
+                    "route_s": time.perf_counter() - t0,
+                    "launches": dict(launches)}
+    check(got == level_ref["want_first"], "(c) the sharded wavefront routes "
+                                       "differently from the streaming stage")
+    say(f"(c) {LEVEL_SHARDS} parts of {s_part} states folded to "
+        f"{LEVEL_SHARDS * s_part} (unsharded {level_ref['n_states']}); one K6 "
+        f"a chunk step ({launches['K6']}), routes as the streaming stage in "
+        f"{out['level']['route_s']:.3f} s")
+    del st
+    torch.cuda.empty_cache()
+
+    # (d) the chaos drill on the card
+    t0 = time.perf_counter()
+    report, launches = drive("(d) run_chaos_trace(48), query_shards=2",
+                             lambda: run_chaos_trace(48, device=str(dev)),
+                             {"K2"})
+    out["chaos"] = {"checks": report["checks"], "s": time.perf_counter() - t0,
+                    "dead_letter": [r["error"] for r in
+                                    report["dead_letter"]],
+                    "swaps": report["slo"]["swaps"]}
+    say(f"(d) chaos drill in {out['chaos']['s']:.1f} s: {report['checks']}; "
+        f"dead letters {out['chaos']['dead_letter']}")
+    check(report["ok"], f"(d) the chaos drill failed: {report['checks']}")
+    return out
+
+
 # ------------------------------------------------------------------- main
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1380,12 +1635,14 @@ def main() -> int:
     t = times(run, short, tables, lane_cls, errs, dev)
     k6 = k6_times(level_plan, layout, errs, dev)
     del level_plan
-    levels = level_phase(dtd, d, bufs, layout, k6, dev)
+    levels, level_ref = level_phase(dtd, d, bufs, layout, k6, dev)
     serving = serve_phase(dtd, d, qs, run, short, dev)
+    sharded = sharded_phase(dtd, d, qs, bufs, run, short, level_ref, layout,
+                            t["K2"][0], dev)
 
     s = run["stats"]
     card = card_line()
-    say(f"phase 8: end to end on {card}: {len(run['payloads'])} documents, "
+    say(f"phase 9: end to end on {card}: {len(run['payloads'])} documents, "
         f"{run['n_bytes']} bytes in {run['e2e_s']:.3f} s = "
         f"{len(run['payloads']) / run['e2e_s']:.1f} docs/s, "
         f"{run['n_bytes'] / run['e2e_s'] / 1e6:.1f} MB/s (host clock around "
@@ -1398,6 +1655,11 @@ def main() -> int:
         f"{LEVEL_PROFILES} profiles: " + "; ".join(
             f"{e} {v['requests'] * BATCH / v['e2e_s']:.2f} docs/s"
             for e, v in levels.items())
+        + f"; query-sharded ({sharded['parts']} parts, "
+        f"{sharded['folded_blocks']} folded blocks): K2 "
+        f"{sharded['K2_ms']:.3f} ms a request, subscribe "
+        f"{sharded['churn']['subscribe_s']:.3f} s, unsubscribe commit "
+        f"{sharded['churn']['unsubscribe_commit_ms']:.3f} ms"
         + f"; serve loop: sparse pub-sub p50 "
         f"{serving['sparse']['p50_ms']:.3f} / p99 "
         f"{serving['sparse']['p99_ms']:.3f} ms at "
@@ -1427,6 +1689,15 @@ def main() -> int:
             row["matmul_ms"] = step["matmul_ms"]
         if key in t["chain_events"]:
             row["chain_ns_per_event"] = ms * 1e6 / t["chain_events"][key]
+        # phase 8's query-sharded runs: the same kernel over the parts
+        # folded into one launch (blocks for K1-K4, K6's state axis)
+        row["sharded_launches"] = (sharded["level"]["launches"][key]
+                                   if key in ("K5", "K6")
+                                   else sharded["launches"][key])
+        if key in ("K1", "K2", "K3", "K4"):
+            row["sharded_blocks"] = sharded["folded_blocks"]
+        elif key == "K6":
+            row["sharded_states"] = sharded["level"]["folded_states"]
         rows.append(row)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

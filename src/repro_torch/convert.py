@@ -10,16 +10,22 @@ run on exactly the tables another build produced:
 * :func:`level_plan_from_numpy` — a levelwise or wavefront plan's dense
   tables (:data:`LEVEL_TABLES`), which K6 reads;
 * :func:`matscan_plan_from_numpy` — a matscan plan's ``step_tags`` and
-  ``accept_idx``.
+  ``accept_idx``;
+* :func:`sharded_plan_from_numpy` — a sharded plan: each part's tables
+  through the function of its engine family, with the partition's
+  bookkeeping (columns, queries, sub-NFAs, pads), into the port's
+  :class:`~repro_torch.core.engines.base.ShardedPlan`.
 """
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Mapping, Sequence
 
 import numpy as np
 import torch
 
-from .core.engines.base import FilterPlan
+from .core.engines.base import FilterEngine, FilterPlan, ShardedPlan
+from .core.nfa import NFA, NFATables
+from .core.xpath import parse
 from .kernels.stream_filter import check_block_tables
 
 #: the block tables the megakernels and the lane → query gather read
@@ -167,3 +173,60 @@ def matscan_plan_from_numpy(tables: Mapping[str, Any],
     return FilterPlan("matscan", placed,
                       {"kmax": kmax, "n_queries": st.shape[0],
                        "prep": meta.get("prep", "events-device")})
+
+
+def nfa_from_numpy(nfa: Any) -> NFA:
+    """An NFA of either package (its tables as arrays, its queries with
+    their source text) → the port's :class:`NFA`, queries re-parsed."""
+    tables = NFATables(*(np.asarray(x) for x in nfa.tables))
+    return NFA(tables, tuple(parse(q.raw) for q in nfa.queries),
+               bool(nfa.shared), int(nfa.n_tags))
+
+
+def sharded_plan_from_numpy(engine: FilterEngine,
+                            part_tables: Sequence[Mapping[str, Any]],
+                            part_meta: Sequence[Mapping[str, Any]], *,
+                            part_cols: Sequence[Sequence[int]],
+                            part_queries: Sequence[Sequence[Any]],
+                            part_nfas: Sequence[Any],
+                            pads: Mapping[str, int], n_global: int,
+                            query_bucket: int,
+                            shared: bool) -> ShardedPlan:
+    """A sharded plan's per-part tables (numpy) and partition bookkeeping
+    → the port's :class:`ShardedPlan`, run by ``engine`` (a port engine
+    of the same family) on its device.
+
+    Each part goes through the function of its family
+    (:func:`plan_from_numpy`, :func:`level_plan_from_numpy`,
+    :func:`matscan_plan_from_numpy`), so its tables are checked before
+    they reach a kernel; queries and sub-NFAs may be the JAX package's
+    (they are re-parsed and copied).  Host engines have no tables to
+    carry.
+    """
+    if not engine.device_sharded:
+        raise ValueError(f"{engine.name}: a host engine's plan has no "
+                         f"tables to carry over")
+    if len(part_tables) != len(part_meta):
+        raise ValueError(f"{len(part_tables)} parts of tables but "
+                         f"{len(part_meta)} of metadata")
+    if engine.name == "streaming":
+        plans = [plan_from_numpy(t, m, engine.device)
+                 for t, m in zip(part_tables, part_meta)]
+    elif engine.name in ("levelwise", "wavefront"):
+        plans = [level_plan_from_numpy(engine.name, t, m, engine.device)
+                 for t, m in zip(part_tables, part_meta)]
+    elif engine.name == "matscan":
+        plans = [matscan_plan_from_numpy(t, m, engine.device)
+                 for t, m in zip(part_tables, part_meta)]
+    else:
+        raise ValueError(f"no table conversion for engine {engine.name!r}")
+    shapes = {k: {tuple(p[k].shape) for p in plans} for k in plans[0].tables}
+    ragged = sorted(k for k, v in shapes.items() if len(v) > 1)
+    if ragged:
+        raise ValueError(f"part tables {ragged} differ in shape: the parts "
+                         f"were not compiled at uniform pads")
+    queries = [[None if q is None else parse(q.raw) for q in qs]
+               for qs in part_queries]
+    return ShardedPlan(engine, plans, part_cols, queries,
+                       [nfa_from_numpy(n) for n in part_nfas], pads,
+                       n_global, query_bucket, shared)

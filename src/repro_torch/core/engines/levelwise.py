@@ -22,10 +22,13 @@ level at once:
 
 ``vmap`` over documents becomes a batch dimension written out: each level
 (or chunk step) is ONE step for the whole batch, so K6 launches once per
-level or chunk, not once per document.  The depth-major bucketing is a
-host numpy pass (plan meta ``"prep": "levels-host"``): a batch parsed on
-the device comes back to the host for it, and its buckets go to the
-device once.
+level or chunk, not once per document.  A sharded plan's parts fold into
+the state axis (:meth:`_LevelEngine._folded_plan`): P parts of S states
+are one plan of P·S states whose parent indices never leave their part,
+so K6 still launches once per level or chunk for all parts.  The
+depth-major bucketing is a host numpy pass (plan meta ``"prep":
+"levels-host"``): a batch parsed on the device comes back to the host
+for it, and its buckets go to the device once.
 """
 from __future__ import annotations
 
@@ -305,8 +308,8 @@ def _run_level(tags: torch.Tensor, parent_slot: torch.Tensor,
     b, d_max, w_max = tags.shape
     s = int(plan.meta["n_states"])
     dev = tags.device
-    selfloop, init, req, wild, p1h = (plan[k] for k in (
-        "selfloop", "init", "req", "wild", "parent_1h"))
+    selfloop, init, req, wild = (plan[k] for k in (
+        "selfloop", "init", "req", "wild"))
     accept = plan["accept_state"].long()
     parent_idx = plan["in_state"]
     in_state = parent_idx.long()
@@ -325,7 +328,7 @@ def _run_level(tags: torch.Tensor, parent_slot: torch.Tensor,
         else:
             if use_matmul:
                 tagmatch = ref.tag_rows(flat_tags, req) + wild[None, :]
-                src = parent_rows @ p1h
+                src = parent_rows @ plan["parent_1h"]
             else:
                 tagmatch = ((in_tag[None, :] == flat_tags[:, None])
                             | (in_tag == WILD_TAG)[None, :]).to(torch.float32)
@@ -412,13 +415,62 @@ def _run_wavefront_kernel(tags: torch.Tensor, parent_idx: torch.Tensor,
 # ---------------------------------------------------------------- engines
 class _LevelEngine(base.FilterEngine):
     """What the two levelwise engines share: the plan, the staging of host
-    buckets on the device, and the batch entry points."""
+    buckets on the device, the batch entry points and the sharded runs."""
 
     state_multiple = 128
     device_sharded = True
 
     def plan(self, nfa: NFA) -> base.FilterPlan:
         return _level_plan(self.name, nfa, self.state_multiple, self.device)
+
+    def part_pads(self, parts, *, query_bucket: int = 8):
+        """Uniform pads, the tag space included: REQ is (T, S), so the
+        parts stack only at one T, bucketed to 16 so that churn bringing
+        new tags rarely forces a global re-pad."""
+        pads = super().part_pads(parts, query_bucket=query_bucket)
+        pads["n_tags"] = base._round_up(
+            max((nfa.n_tags for nfa in parts), default=1), 16)
+        return pads
+
+    def _folded_plan(self, sharded: base.ShardedPlan) -> base.FilterPlan:
+        """The parts of a stacked plan folded into the state axis: one
+        plan of P·S states, ``req`` and the state vectors concatenated
+        along S, ``in_state`` and ``accept_state`` offset by ``p·S``.  No
+        state reads a parent outside its part, so K6's gather by
+        ``in_state`` is exact; no (P·S)² one-hot is built.  Made once per
+        sharded plan."""
+
+        def build():
+            st = sharded.stacked()
+            p, s = st["in_state"].shape
+            offs = torch.arange(p, dtype=torch.int32,
+                                device=sharded.device)[:, None] * s
+            tables = {k: st[k].reshape(-1) for k in (
+                "in_tag", "selfloop", "init", "wild")}
+            tables.update(
+                in_state=(st["in_state"] + offs).reshape(-1),
+                accept_state=(st["accept_state"] + offs).reshape(-1),
+                req=st["req"].permute(1, 0, 2).reshape(
+                    st["req"].shape[1], p * s))
+            meta = dict(st.meta, n_states=p * s)
+            return base.FilterPlan(self.name, tables, meta)
+
+        return self._lane_memo(sharded, build, "folded")
+
+    def _folds_parts(self) -> bool:
+        """Run a sharded plan as one folded plan?  Every mode but
+        ``torch.matmul`` by the parent one-hot, which runs part by part."""
+        return True
+
+    def _run_parts(self, sharded: base.ShardedPlan, prep: tuple
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+        if not self._folds_parts():
+            return super()._run_parts(sharded, prep)
+        matched, first = self._run_with_plan(self._folded_plan(sharded),
+                                             prep)
+        b, p = matched.shape[0], sharded.n_parts
+        return (matched.view(b, p, -1).permute(1, 0, 2),
+                first.view(b, p, -1).permute(1, 0, 2))
 
     def _stage(self, *arrays: np.ndarray) -> tuple[torch.Tensor, ...]:
         return tuple(self.to_device(a) for a in arrays)
@@ -525,3 +577,7 @@ class LevelwiseEngine(_LevelEngine):
     def _run_with_plan(self, plan: base.FilterPlan, prep: tuple):
         return _run_level(*prep, plan, use_matmul=self.use_matmul,
                           use_kernel=self.use_kernel)
+
+    def _folds_parts(self) -> bool:
+        # torch.matmul by the parent one-hot would need a (P·S)² one-hot
+        return self.use_kernel or not self.use_matmul

@@ -119,21 +119,65 @@ class MatscanEngine(base.FilterEngine):
         super().__init__(nfa, dictionary, **options)
 
     def plan(self, nfa: NFA) -> base.FilterPlan:
+        return self._build_plan(nfa, kmax=None, n_queries=None)
+
+    def _build_plan(self, nfa: NFA, kmax: int | None,
+                    n_queries: int | None) -> base.FilterPlan:
+        """Plan with optional uniform pads (a sharded part's compile).
+
+        Padding queries carry no matchable step (all ``-1``) and accept at
+        index ``kmax``, unreachable without a step-``kmax`` tag match;
+        padding step columns never advance or negate anything.
+        """
         from ...convert import matscan_plan_from_numpy  # imports this package
 
         queries = list(nfa.queries)
-        kmax = max([q.length for q in queries] + [1])
-        step_tags = np.full((len(queries), kmax), -1, np.int32)
-        accept_idx = np.full(len(queries), kmax, np.int32)
+        for q in queries:
+            _check_supported(q)  # churn-added queries are checked here
+        kmax = max([q.length for q in queries] + [kmax or 1])
+        nq = max(n_queries or 0, len(queries))
+        step_tags = np.full((nq, kmax), -1, np.int32)
+        accept_idx = np.full(nq, kmax, np.int32)
         for qi, q in enumerate(queries):
             for i, st in enumerate(q.steps):
                 step_tags[qi, i] = self.dictionary.add(st.tag)
             accept_idx[qi] = q.length  # accept index = its own length
         return matscan_plan_from_numpy(
             {"step_tags": step_tags, "accept_idx": accept_idx},
-            {"kmax": kmax, "n_queries": len(queries),
+            {"kmax": kmax, "n_queries": nq,
              # the scan consumes the raw event stream
              "prep": "events-device"}, self.device)
+
+    # ------------------------------------------------------- sharded hooks
+    def part_pads(self, parts, *, query_bucket: int = 8):
+        """Uniform (Q, kmax) table shape across parts (no state axis:
+        matscan's states are per-query step indices); ``kmax`` is
+        bucketed so a slightly longer new query does not re-pad all
+        parts."""
+        kmax = max((q.length for nfa in parts for q in nfa.queries),
+                   default=1)
+        nq = max((nfa.n_queries for nfa in parts), default=1)
+        return {"kmax": base._round_up(kmax, 4),
+                "n_queries": base._round_up(max(nq, 1), query_bucket)}
+
+    def plan_part(self, nfa: NFA, pads) -> base.FilterPlan:
+        if not pads:
+            return self.plan(nfa)
+        return self._build_plan(nfa, kmax=pads["kmax"],
+                                n_queries=pads["n_queries"])
+
+    def _run_parts(self, sharded: base.ShardedPlan, prep: tuple
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Every part in one scan: the stacked (P, Qpad, kmax) query
+        tables fold into the query axis."""
+        st = sharded.stacked()
+        kind, tag = prep
+        matched, first = _scan_batch(st["step_tags"].flatten(0, 1),
+                                     st["accept_idx"].flatten(0, 1),
+                                     kind, tag)
+        b, p = matched.shape[0], sharded.n_parts
+        return (matched.view(b, p, -1).permute(1, 0, 2),
+                first.view(b, p, -1).permute(1, 0, 2))
 
     def _prep(self, batch: EventBatch) -> tuple:
         if batch.is_device:

@@ -1,8 +1,9 @@
 # Subset of src/repro/core/events.py (the port imports nothing of the JAX
 # package): event streams, event/byte batches, segment packing, the byte
 # codec, the document error taxonomy and the serve loop's pre-admission
-# check (validate_payload); batches hold numpy arrays or, once
-# parsed on a device, torch tensors.
+# check (validate_payload) and the tree view (Node, to_trees,
+# from_trees); batches hold numpy arrays or, once parsed on a device,
+# torch tensors.
 """Document event streams and the fixed-width byte codec.
 
 A document is represented as a balanced sequence of *events*:
@@ -703,3 +704,38 @@ def event_stream_nbytes(ev: EventStream, text_fill: int = 0) -> int:
     n_open = int((ev.kind == OPEN).sum())
     n_close = int((ev.kind == CLOSE).sum())
     return n_open * (OPEN_NBYTES + text_fill) + n_close * CLOSE_NBYTES
+
+
+# ----------------------------------------------------------------- tree view
+@dataclass
+class Node:
+    tag_id: int
+    children: list["Node"]
+
+
+def to_trees(ev: EventStream) -> list[Node]:
+    """Event stream → forest of nodes (oracle engine input)."""
+    roots: list[Node] = []
+    stack: list[Node] = []
+    for k, t in zip(ev.kind, ev.tag_id):
+        if k == OPEN:
+            node = Node(int(t), [])
+            (stack[-1].children if stack else roots).append(node)
+            stack.append(node)
+        elif k == CLOSE:
+            stack.pop()
+    return roots
+
+
+def from_trees(roots: list[Node]) -> EventStream:
+    pairs: list[tuple[int, int]] = []
+
+    def walk(n: Node) -> None:
+        pairs.append((OPEN, n.tag_id))
+        for c in n.children:
+            walk(c)
+        pairs.append((CLOSE, n.tag_id))
+
+    for r in roots:
+        walk(r)
+    return EventStream.from_pairs(pairs)

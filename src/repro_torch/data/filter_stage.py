@@ -1,9 +1,9 @@
 """Pub-sub content routing as a pipeline stage, on the port's engines.
 
-Counterpart of ``src/repro/data/filter_stage.py`` for one shard of the
-subscription set: a stream of documents is matched against standing
-profiles and each document is routed to every data shard that holds a
-matching subscription.  :meth:`FilterStage.route` takes host-parsed event
+Counterpart of ``src/repro/data/filter_stage.py`` on one card: a stream of
+documents is matched against standing profiles and each document is
+routed to every data shard that holds a matching subscription.
+:meth:`FilterStage.route` takes host-parsed event
 streams, :meth:`FilterStage.route_bytes` raw paper-format byte payloads
 decoded on the device by the engine's ``filter_bytes``.  Verdicts come
 back dense, or with ``sparse=True`` as bounded match lists (the engines'
@@ -16,8 +16,12 @@ the hot path and :meth:`~FilterStage.commit` installs it atomically at a
 new :class:`PlanEpoch`; a batch pinned to an epoch filters and fans out
 with that epoch's engine and gid table even after a later commit, which
 is what the serve loop's hot swap rests on (:mod:`repro_torch.serve`).
-Query and data sharding (``query_shards``/``data_shards > 1``) are ROADMAP
-queue 1 items 7 and 13; asking for them raises.
+``query_shards > 1`` partitions the subscriptions into that many parts
+(:meth:`FilterEngine.plan_sharded`), all run in one launch on the card;
+a subscribe then recompiles one part, an unsubscribe only tombstones,
+and :meth:`FilterStage.maybe_rebalance` evens the parts' load.  Data
+sharding (``data_shards > 1``, the 2-D mesh) is ROADMAP queue 1 item 13;
+asking for it raises.
 """
 from __future__ import annotations
 
@@ -62,13 +66,13 @@ class StalePlanError(RuntimeError):
 class PlanEpoch:
     """Immutable snapshot of the live plan, taken at dispatch time.
 
-    A batch dispatched against epoch *E* filters with *E*'s engine and
-    gid mapping even if churn commits a replacement mid-flight — verdict
-    columns and the gid axis always agree (the JAX package's snapshot
-    also holds the sharded plan: ROADMAP queue 1 item 7)."""
+    A batch dispatched against epoch *E* filters with *E*'s engine,
+    sharded plan and gid mapping even if churn commits a replacement
+    mid-flight — verdict columns and the gid axis always agree."""
 
     epoch: int
     eng: Any
+    sharded: Any                       # ShardedPlan | None
     gids: np.ndarray
 
 
@@ -77,25 +81,27 @@ class PendingPlan:
     """A fully built replacement plan awaiting an atomic commit.
 
     Produced off the hot path by ``prepare_subscribe`` /
-    ``prepare_unsubscribe`` — the expensive work (NFA compile, engine
-    plan, its tables' copy to the device) happens during *prepare*,
-    against a snapshot, without mutating the stage; ``commit`` is a
-    handful of reference assignments under the plan mutex."""
+    ``prepare_unsubscribe`` / ``prepare_rebalance`` — the expensive work
+    (NFA compile, part re-plan, rebalance migration, the tables' copy to
+    the device) happens during *prepare*, against a snapshot, without
+    mutating the stage; ``commit`` is a handful of reference assignments
+    under the plan mutex."""
 
-    op: str                            # "subscribe" | "unsubscribe"
+    op: str                            # "subscribe" | "unsubscribe" | "rebalance"
     base_epoch: int
     gid: int | None = None
-    eng: Any = None                    # replacement engine
+    stats: dict | None = None          # rebalance stats
+    sharded: Any = None                # replacement ShardedPlan
+    eng: Any = None                    # replacement engine (unsharded)
     nfa: Any = None
     live: dict | None = None
     gids: np.ndarray | None = None
     build_s: float = 0.0
 
 
-#: what the stage cannot do yet, and the ROADMAP items that port it
-_NOT_PORTED_SHARDING = ("query_shards > 1 or data_shards > 1 is not "
-                        "ported yet: sharded plans are ROADMAP queue 1 item "
-                        "7, the 2-D (data x model) paths item 13")
+#: what the stage cannot do yet, and the ROADMAP item that ports it
+_NOT_PORTED_SHARDING = ("data_shards > 1 is not ported yet: the 2-D "
+                        "(data x model) paths are ROADMAP queue 1 item 13")
 
 
 @dataclass
@@ -111,8 +117,15 @@ class FilterStage:
     ``byte_bucket`` each byte batch; ``device`` is where the engine runs
     (``"cuda"`` unless the caller asks for ``"cpu"``).  ``sparse=True``
     delivers verdicts as bounded ``(doc, query)`` match lists, with the
-    bound from ``engine_options={"match_cap": ...}``.  Unsharded, churn
-    recompiles the whole engine (:meth:`subscribe`, :meth:`unsubscribe`).
+    bound from ``engine_options={"match_cap": ...}``.
+
+    ``query_shards > 1`` partitions the subscription set into that many
+    balanced parts and filters through the engine's sharded path: on one
+    card every part runs in one launch.  Routing is by **global query
+    id** through the partition index, so documents fan out identically
+    with and without query sharding.  Churn then recompiles only the
+    least-loaded part (:meth:`subscribe`) or tombstones
+    (:meth:`unsubscribe`); unsharded, it recompiles the whole engine.
     """
 
     profiles: Sequence[Query]
@@ -126,7 +139,7 @@ class FilterStage:
     query_shards: int = 1
     data_shards: int = 1
     #: in-flight depth of :meth:`route_bytes_pipelined`, as in the JAX
-    #: package (an unsharded stage routes synchronously at any depth)
+    #: package (the port routes synchronously at any depth)
     pipeline_depth: int = 2
     device: str = "cuda"
     shard_of_profile: np.ndarray = field(default=None)  # type: ignore
@@ -134,15 +147,15 @@ class FilterStage:
     #: deliver verdicts as sparse match lists (``filter_*_sparse``)
     sparse: bool = False
     #: run :meth:`maybe_rebalance` every N churn ops (0 = manual only);
-    #: rebalancing moves trie groups between query shards, so an
-    #: unsharded stage has nothing to move
+    #: ``rebalance_tolerance`` is the max/mean-1 imbalance the plan may
+    #: have before trie groups migrate between query shards
     rebalance_every: int = 0
     rebalance_tolerance: float = 0.25
     #: extra engine options (e.g. ``{"pack": True}``, ``{"match_cap": n}``)
     engine_options: dict = field(default_factory=dict)
 
     def __post_init__(self) -> None:
-        if self.query_shards > 1 or self.data_shards > 1:
+        if self.data_shards > 1:
             raise NotImplementedError(_NOT_PORTED_SHARDING)
         if isinstance(self.profiles[0], str):
             self.profiles = [parse(p) for p in self.profiles]
@@ -155,13 +168,16 @@ class FilterStage:
                                         shared=True)
         self._eng = self._make_engine(self.nfa)
         self._churn_ops = 0
+        self.sharded_ = (self._eng.plan_sharded(self.query_shards)
+                         if self.query_shards > 1 else None)
         if self.shard_of_profile is None:
             self.shard_of_profile = (
                 np.arange(len(self.profiles)) % self.n_shards).astype(np.int32)
         self.stats = {"batches": 0, "docs": 0, "bytes": 0,
                       "seconds": 0.0, "pair_matches": 0, "pairs": 0,
                       "put_seconds": 0.0, "overlapped_batches": 0,
-                      "verdict_bytes": 0, "device_rows": 0, "paths": {}}
+                      "verdict_bytes": 0, "device_rows": 0, "paths": {},
+                      "rebalances": 0}
         # plan epoch: bumped on every committed plan change; the mutex
         # covers only snapshot/commit (reference assignments), never a
         # compile — prepare_* does the expensive work outside it
@@ -177,13 +193,15 @@ class FilterStage:
 
     # --------------------------------------------------- subscription churn
     def plan_epoch(self) -> PlanEpoch:
-        """Consistent (epoch, engine, gids) snapshot for dispatch.
+        """Consistent (epoch, engine, sharded plan, gids) snapshot for
+        dispatch.
 
         A batch filtered against this snapshot and fanned out with its
         ``gids`` is correct even if a plan swap commits while the batch
         is in flight."""
         with self._plan_mtx:
-            return PlanEpoch(self._epoch, self._eng, self._gids)
+            return PlanEpoch(self._epoch, self._eng, self.sharded_,
+                             self._gids)
 
     def _prepare(self, op: str, base: int, live: dict, gid: int,
                  t0: float) -> PendingPlan:
@@ -200,35 +218,65 @@ class FilterStage:
     def prepare_subscribe(self, profile: Query | str) -> PendingPlan:
         """Build (but do not install) the plan that adds ``profile``.
 
-        Pure with respect to the stage: the full replacement engine is
-        compiled against a snapshot, so a failed build (e.g. a rejected
-        profile) leaves the live plan untouched with nothing to roll
-        back."""
+        Pure with respect to the stage: sharded stages re-plan only the
+        least-loaded part (:meth:`ShardedPlan.add_queries`, whose new
+        stacked tables leave the live plan's untouched), unsharded stages
+        compile the full replacement engine — either way against a
+        snapshot, so a failed build (e.g. a rejected profile) leaves the
+        live plan untouched with nothing to roll back."""
         q = parse(profile) if isinstance(profile, str) else profile
         t0 = time.perf_counter()
         with self._plan_mtx:
             base = self._epoch
+            sharded = self.sharded_
             live = dict(self._live)
             gid = self._next_gid
+        if sharded is not None:
+            sp, new = sharded.add_queries([q])
+            gid = new[0]
+            live[gid] = q
+            return PendingPlan("subscribe", base, gid=gid, sharded=sp,
+                               live=live, gids=sp.live_ids(),
+                               build_s=time.perf_counter() - t0)
         live[gid] = q
         return self._prepare("subscribe", base, live, gid, t0)
 
     def prepare_unsubscribe(self, gid: int) -> PendingPlan:
-        """Build the plan that drops ``gid``."""
+        """Build the plan that drops ``gid`` (a tombstone when sharded)."""
         if gid not in self._live:
             raise KeyError(f"query id {gid} is not subscribed")
         t0 = time.perf_counter()
         with self._plan_mtx:
             base = self._epoch
+            sharded = self.sharded_
             live = dict(self._live)
         del live[gid]
+        if sharded is not None:
+            sp = sharded.remove_queries([gid])
+            return PendingPlan("unsubscribe", base, gid=gid, sharded=sp,
+                               live=live, gids=sp.live_ids(),
+                               build_s=time.perf_counter() - t0)
         return self._prepare("unsubscribe", base, live, gid, t0)
 
     def prepare_rebalance(self, *, tolerance: float | None = None
                           ) -> PendingPlan | None:
-        """Build the rebalanced plan: sharded stages only, so ``None``
-        here, as in the JAX package's unsharded stage."""
-        return None
+        """Build the rebalanced plan (sharded stages only, else ``None``).
+
+        ``pending.sharded`` is ``None`` when no trie group needed to move:
+        committing such a plan changes nothing and returns the stats."""
+        if self.sharded_ is None:
+            return None
+        tol = self.rebalance_tolerance if tolerance is None else tolerance
+        t0 = time.perf_counter()
+        with self._plan_mtx:
+            base = self._epoch
+            sharded = self.sharded_
+        new, stats = sharded.rebalance(tolerance=tol)
+        moved = bool(stats["moves"])
+        return PendingPlan("rebalance", base, stats=stats,
+                           sharded=new if moved else None,
+                           gids=new.live_ids() if moved else None,
+                           build_s=time.perf_counter() - t0)
 
     def commit(self, pending: PendingPlan, shard: int | None = None):
         """Atomically install a prepared plan at the current epoch.
@@ -237,17 +285,28 @@ class FilterStage:
         batches dispatched against the previous :meth:`plan_epoch`
         snapshot keep filtering the old plan; the next snapshot sees the
         new one (whose readers wait for its tables on the device:
-        :meth:`FilterEngine.wait_plan`).  Raises :class:`StalePlanError`
-        (leaving the live plan untouched) if another commit landed since
-        ``prepare_*``.  Returns the gid."""
+        :meth:`FilterEngine.wait_plan`, :meth:`ShardedPlan.wait`).  Raises
+        :class:`StalePlanError` (leaving the live plan untouched) if
+        another commit landed since ``prepare_*``.  Returns the gid for
+        churn, the stats dict for a rebalance."""
         with self._plan_mtx:
             if pending.base_epoch != self._epoch:
                 raise StalePlanError(
                     f"plan prepared against epoch {pending.base_epoch}, "
                     f"live plan is at {self._epoch}; re-prepare")
+            if pending.op == "rebalance":
+                if pending.sharded is not None:
+                    self.sharded_ = pending.sharded
+                    self._gids = pending.gids
+                    self.stats["rebalances"] += 1
+                    self._epoch += 1
+                return pending.stats
             self._live = pending.live
-            self.nfa = pending.nfa
-            self._eng = pending.eng
+            if pending.sharded is not None:
+                self.sharded_ = pending.sharded
+            else:
+                self.nfa = pending.nfa
+                self._eng = pending.eng
             self._gids = pending.gids
             self._epoch += 1
             if pending.op == "subscribe":
@@ -258,9 +317,11 @@ class FilterStage:
     def subscribe(self, profile: Query | str, shard: int | None = None) -> int:
         """Add a standing profile live; returns its global query id.
 
-        The unsharded stage pays the full recompile.  Prepare/commit
-        under the hood: a failed build never touches the live plan, and
-        a concurrent commit just means one re-prepare."""
+        Sharded stages recompile only the least-loaded part; unsharded
+        stages pay the full recompile — the cost gap is the point of
+        query sharding.  Prepare/commit under the hood: a failed build
+        never touches the live plan, and a concurrent commit just means
+        one re-prepare."""
         while True:
             pending = self.prepare_subscribe(profile)
             try:
@@ -272,7 +333,8 @@ class FilterStage:
         return gid
 
     def unsubscribe(self, gid: int) -> None:
-        """Remove a subscription by global id (full recompile)."""
+        """Remove a subscription by global id (a tombstone when sharded,
+        else a full recompile)."""
         while True:
             pending = self.prepare_unsubscribe(gid)
             try:
@@ -291,9 +353,23 @@ class FilterStage:
 
     def maybe_rebalance(self, *, tolerance: float | None = None
                         ) -> dict | None:
-        """Shard-load repair; ``None``, since an unsharded stage has no
-        shards to balance."""
-        return None
+        """Off-hot-path shard-load repair (sharded stages only).
+
+        Runs :meth:`ShardedPlan.rebalance` against the live plan and, if
+        any trie groups moved, swaps the new frozen plan in with one
+        reference assignment — batches already dispatched keep filtering
+        the old plan, and verdicts and routing are identical either way.
+        Returns the rebalance stats, or ``None`` when the stage is
+        unsharded.
+        """
+        while True:
+            pending = self.prepare_rebalance(tolerance=tolerance)
+            if pending is None:
+                return None
+            try:
+                return self.commit(pending)
+            except StalePlanError:
+                continue
 
     def _grow_shard_map(self, gid: int, shard: int | None) -> None:
         if gid >= len(self.shard_of_profile):
@@ -305,33 +381,49 @@ class FilterStage:
             self.shard_of_profile[gid] = shard
 
     # ----------------------------------------------------------------- run
-    def _filter_batch(self, docs: list[EventStream]
+    def _filter_batch(self, docs: list[EventStream], record: bool = True
                       ) -> FilterResult | SparseResult:
-        eng = self._eng
+        """Events path: every engine gets one EventBatch.  ``record=False``
+        keeps metric-only reads (:meth:`selectivity`) out of the routing
+        stats."""
+        with self._plan_mtx:
+            eng, sharded = self._eng, self.sharded_
         batch = EventBatch.from_streams(docs, bucket=self.bucket)
         t0 = time.perf_counter()
         eng.wait_plan()
-        res = (eng.filter_batch_sparse if self.sparse
-               else eng.filter_batch)(batch)
-        self._record(res, batch.batch_size,
-                     int(batch.nbytes(TEXT_FILL).sum()),
-                     time.perf_counter() - t0)
+        if sharded is not None:
+            res = (eng.filter_batch_sharded_sparse if self.sparse
+                   else eng.filter_batch_sharded)(batch, sharded)
+        else:
+            res = (eng.filter_batch_sparse if self.sparse
+                   else eng.filter_batch)(batch)
+        if record:
+            self._record(res, batch.batch_size,
+                         int(batch.nbytes(TEXT_FILL).sum()),
+                         time.perf_counter() - t0)
         return res
 
     def _filter_bytebatch(self, bufs: list[bytes], record: bool = True,
                           epoch: PlanEpoch | None = None
                           ) -> FilterResult | SparseResult:
         """Device-ingest batched path: raw wire bytes in, verdicts out,
-        decoded on the device by the engine's ``filter_bytes``.  ``epoch``
-        pins the batch to a :meth:`plan_epoch` snapshot so a concurrent
-        plan swap cannot tear engine/gids mid-batch; the current stream
-        waits for that engine's tables first."""
-        eng = self._eng if epoch is None else epoch.eng
+        decoded on the device by the engine's ``filter_bytes`` (its
+        sharded twin when the stage is query-sharded).  ``epoch`` pins the
+        batch to a :meth:`plan_epoch` snapshot so a concurrent plan swap
+        cannot tear engine/plan/gids mid-batch; the current stream waits
+        for that plan's tables first."""
+        ep = self.plan_epoch() if epoch is None else epoch
+        eng, sharded = ep.eng, ep.sharded
         bb = ByteBatch.from_buffers(bufs, bucket=self.byte_bucket)
         t0 = time.perf_counter()
         eng.wait_plan()
-        res = (eng.filter_bytes_sparse if self.sparse
-               else eng.filter_bytes)(bb, bucket=self.bucket)
+        if sharded is not None:
+            res = (eng.filter_bytes_sharded_sparse if self.sparse
+                   else eng.filter_bytes_sharded)(bb, sharded,
+                                                  bucket=self.bucket)
+        else:
+            res = (eng.filter_bytes_sparse if self.sparse
+                   else eng.filter_bytes)(bb, bucket=self.bucket)
         if record:
             self._record(res, bb.batch_size, bb.nbytes_total(),
                          time.perf_counter() - t0)
@@ -396,12 +488,11 @@ class FilterStage:
                               depth: int | None = None
                               ) -> Iterator[list[RoutedDocument]]:
         """K-deep pipelined twin of :meth:`route_bytes`.  In the JAX
-        package it overlaps batches on the 2-D mesh and falls back to
-        :meth:`route_bytes` when the stage has no sharded plan; an
-        unsharded stage never has one, so it routes exactly as
-        :meth:`route_bytes` at any ``depth``.  Batches overlap on the
-        card in the serve loop (:class:`repro_torch.serve.ServeLoop`),
-        one stream per worker."""
+        package it overlaps batches on the 2-D mesh (ROADMAP queue 1 item
+        13); the port has no mesh, so it routes exactly as
+        :meth:`route_bytes` at any ``depth``, sharded or not.  Batches
+        overlap on the card in the serve loop
+        (:class:`repro_torch.serve.ServeLoop`), one stream per worker."""
         yield from self.route_bytes(payloads)
 
     def _fan_out(self, results: FilterResult | SparseResult,
@@ -438,10 +529,16 @@ class FilterStage:
         return out
 
     # ------------------------------------------------------------- metrics
+    def selectivity(self, docs: list[EventStream]) -> float:
+        """Fraction of live (doc, profile) pairs that match, a workload
+        statistic.  Read-only: it does not count toward
+        :meth:`throughput`."""
+        return self._filter_batch(list(docs), record=False).selectivity()
+
     def throughput(self) -> dict:
         """Cumulative filtering throughput over everything routed so far,
         with the JAX package's keys; one device, so both mesh axes are 1
-        and every query is on the one model shard."""
+        and every query part is on the one model shard."""
         s = self.stats
         dt = max(s["seconds"], 1e-9)
         return {

@@ -3,7 +3,8 @@ batching, K-deep in-flight dispatch on CUDA streams, latency SLOs.
 
 Counterpart of ``src/repro/serve/loop.py``, with the same constructor,
 counters and semantics, over the port's :class:`~repro_torch.data.
-filter_stage.FilterStage` (unsharded: ``query_shards = data_shards = 1``).
+filter_stage.FilterStage`, unsharded or query-sharded (``data_shards =
+1``: the 2-D mesh is not ported).
 
 Dataflow (one :class:`ServeLoop` instance)::
 
@@ -33,10 +34,11 @@ Dataflow (one :class:`ServeLoop` instance)::
   retried once, then bisected, and poison documents are quarantined into
   the bounded :attr:`ServeLoop.dead_letter` with typed errors.
 * **Shadow-plan hot swap** — :meth:`ServeLoop.subscribe` /
-  :meth:`~ServeLoop.unsubscribe` build the replacement engine on a builder
-  thread and the completer commits it at a batch boundary; in-flight
-  batches keep the :class:`~repro_torch.data.filter_stage.PlanEpoch` they
-  were dispatched under.
+  :meth:`~ServeLoop.unsubscribe` / :meth:`~ServeLoop.rebalance` build the
+  replacement plan on a builder thread (a whole engine, or one part of a
+  sharded plan) and the completer commits it at a batch boundary;
+  in-flight batches keep the :class:`~repro_torch.data.filter_stage.
+  PlanEpoch` they were dispatched under.
 
 **Streams.**  On a card each worker thread (and the completer, when it
 re-filters a subset) runs its batches on a ``torch.cuda.Stream`` of its
@@ -44,7 +46,8 @@ own — the counterpart of JAX's asynchronous dispatch — so one batch's
 staging and host work overlap another's kernels.  What crosses streams
 is ordered explicitly: a worker's stream waits for the plan tables of
 the engine it filters with (:meth:`FilterEngine.wait_plan`; an engine
-built by the builder thread copied them on the builder's stream), and
+built by the builder thread copied them on the builder's stream) and of
+its epoch's sharded plan (:meth:`ShardedPlan.wait`), and
 the engines' memoised lane tables are waited for and recorded on each
 reader's stream.  Everything else a worker allocates stays on its own
 stream, and its verdicts reach the host before the batch is resolved.

@@ -13,8 +13,11 @@ sparse kernels' rows compared as sorted sets (their order on the card is
 not fixed) and their counts exactly.  K5 is checked on both of its
 paths (16-byte vector, scalar), the serve loop on worker streams against
 the synchronous route, and a hot swap with batches in flight against the
-live set of each batch's epoch.  The file imports nothing of JAX, so it
-runs where only the port is installed.
+live set of each batch's epoch.  Query-sharded plans: K1-K4 over the
+folded P·G blocks with tombstoned columns, K6 over the parts folded into
+its state axis (past shared memory too), and a sharded subscribe made on
+one stream while a batch of the old plan runs on another.  The file
+imports nothing of JAX, so it runs where only the port is installed.
 """
 import threading
 import time
@@ -559,7 +562,7 @@ def test_serve_loop_on_card_equals_route_bytes(cuda, sparse):
     assert ticket_routes(tickets) == stage_routes(stage(), raw)
 
 
-def swap_with_batches_in_flight(device):
+def swap_with_batches_in_flight(device, **stage_kw):
     """A hot swap that commits while two batches are in flight.
 
     Batch A (filtered under epoch 0) is held inside the stage's call
@@ -576,9 +579,9 @@ def swap_with_batches_in_flight(device):
 
     _, d, qs, raw = serve_workload(n_docs=16, seed=2)
 
-    def stage(profiles):
+    def stage(profiles, **kw):
         return FilterStage(profiles, d, n_shards=2, keep_unmatched=True,
-                           batch_size=4, device=device)
+                           batch_size=4, device=device, **kw)
 
     before = stage_routes(stage(qs), raw)
     hits = np.bincount(np.concatenate(
@@ -586,7 +589,7 @@ def swap_with_batches_in_flight(device):
     new_q = qs[int(np.argmax(hits))]        # a profile that matches
     after = stage_routes(stage(list(qs) + [new_q]), raw)
 
-    st = stage(qs)
+    st = stage(qs, **stage_kw)
     orig = st._filter_bytebatch
     release = threading.Event()
     epochs = []
@@ -631,3 +634,165 @@ def swap_with_batches_in_flight(device):
 
 def test_hot_swap_with_batches_in_flight_on_card(cuda):
     swap_with_batches_in_flight(str(cuda))
+
+
+# ------------------------------------------------------ query-sharded plans
+def sharded_pair(cuda, n_queries, seed, n_parts, **kw):
+    """The same sharded plan on the CPU and on the card, every 5th
+    profile tombstoned."""
+    dtd, d, nfa = workload(n_queries, seed=seed)
+    cpu, gpu = plans(nfa, d, cuda, **kw)
+    dead = list(range(0, n_queries, 5))
+    return (dtd, cpu, cpu.plan_sharded(n_parts).remove_queries(dead),
+            gpu, gpu.plan_sharded(n_parts).remove_queries(dead))
+
+
+@pytest.mark.parametrize("n_parts", [2, 4])
+def test_folded_kernels_equal_plain(cuda, n_parts):
+    """K1-K4 over the P·G folded blocks of a sharded plan with tombstoned
+    columns, against their plain versions: lanes and ordinals equal, the
+    sparse rows equal as sorted sets with exact counts, one launch each."""
+    dtd, cpu, csp, gpu, gsp = sharded_pair(cuda, 300, 21, n_parts, blk=256)
+    ctab = cpu._folded(csp.stacked())
+    gtab = gpu._folded(gsp.stacked())
+    assert ctab[0].shape[0] == n_parts * int(csp.stacked().meta["n_blocks"])
+    lane = cpu._sharded_lane_tables(csp)[0].flatten(0, 1)
+    docs = gen_corpus(dtd, n_docs=6, nodes_per_doc=90, seed=21)
+    batch = EventBatch.from_streams(docs, bucket=64)
+    events = sf.fuse_events(torch.from_numpy(batch.kind),
+                            torch.from_numpy(batch.tag_id))
+    rows = torch.arange(6, dtype=torch.int32)[:, None]
+    bb = ByteBatch.from_buffers([encode_bytes(x, text_fill=3) for x in docs],
+                                bucket=256)
+    data = torch.from_numpy(bb.data)
+    starts = torch.from_numpy(one_doc_starts(6))
+    before = {k: getattr(sf, k).launches for k in (
+        "stream_filter", "stream_filter_bytes", "stream_filter_sparse",
+        "stream_filter_bytes_sparse")}
+    k1 = sf.stream_filter(events.to(cuda), *gtab, max_depth=64)
+    p1 = sf.stream_filter(events, *ctab, max_depth=64)
+    k2 = sf.stream_filter_bytes(data.to(cuda), starts.to(cuda), *gtab,
+                                max_depth=64)
+    p2 = sf.stream_filter_bytes(data, starts, *ctab, max_depth=64)
+    k4 = sf.stream_filter_sparse(events.to(cuda), rows.to(cuda), *gtab,
+                                 lane.to(cuda), cap=4000, max_depth=64)
+    p4 = sf.stream_filter_sparse(events, rows, *ctab, lane, cap=4000,
+                                 max_depth=64)
+    k3 = sf.stream_filter_bytes_sparse(data.to(cuda), starts.to(cuda),
+                                       rows.to(cuda), *gtab, lane.to(cuda),
+                                       cap=4000, max_depth=64)
+    p3 = sf.stream_filter_bytes_sparse(data, starts, rows, *ctab, lane,
+                                       cap=4000, max_depth=64)
+    torch.cuda.synchronize()
+    assert p1[0].any() and int(p4[1][0]) > 0
+    for k, p in ((k1, p1), (k2, p2)):
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(k, p))
+    for k, p in ((k3, p3), (k4, p4)):
+        assert int(k[1][0]) == int(p[1][0])
+        np.testing.assert_array_equal(sorted_rows(*k, 4000),
+                                      sorted_rows(*p, 4000))
+    assert all(getattr(sf, k).launches == n + 1 for k, n in before.items())
+    # the engine's sharded routes on the card equal its routes on the CPU
+    pb = EventBatch.from_streams(docs, bucket=64)
+    for call, arg in (("filter_batch_sharded", pb),
+                      ("filter_bytes_sharded", bb)):
+        got = getattr(gpu, call)(arg, gsp)
+        want = getattr(cpu, call)(arg, csp)
+        np.testing.assert_array_equal(got.matched, want.matched)
+        np.testing.assert_array_equal(got.first_event, want.first_event)
+    for call, arg in (("filter_batch_sharded_sparse", pb),
+                      ("filter_bytes_sharded_sparse", bb)):
+        got = getattr(gpu, call)(arg, gsp)
+        want = getattr(cpu, call)(arg, csp)
+        assert got.meta["path"] == want.meta["path"] == "kernel-fused"
+        for f in ("doc_ids", "query_ids", "first_event"):
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+
+
+@pytest.mark.parametrize("n_parts", [2, 9])
+def test_folded_k6_equals_plain(cuda, n_parts):
+    """K6 over the parts of chip_smoke's 1,024-profile levelwise plan
+    folded into its state axis, at a wavefront step's 2,048 rows: at two
+    parts, and at nine copies of the whole plan (33,408 states, past what
+    the kernel stages in shared memory)."""
+    from repro_torch.core.engines.base import ShardedPlan
+    from repro_torch.kernels import nfa_transition as nt
+
+    dtd = DTD.generate(n_tags=128, fanout=4, seed=0)
+    d = TagDictionary()
+    dtd.register(d)
+    qs = gen_profiles(dtd, n=1024, length=6, p_desc=0.3, p_wild=0.1, seed=0)
+    nfa = compile_queries(qs, d, shared=True)
+    eng = engines.create("wavefront", nfa, dictionary=d, device=cuda,
+                         use_kernel=True)
+    if n_parts == 2:
+        sp = eng.plan_sharded(2)
+    else:
+        sp = ShardedPlan(eng, [eng.plan_] * n_parts, [[]] * n_parts,
+                         [[]] * n_parts, [eng.nfa] * n_parts, {}, 0, 8, True)
+    folded = eng._folded_plan(sp)
+    s = int(folded["in_state"].shape[0])
+    if n_parts > 2:
+        assert s > nt.staged_max_states()
+    g = torch.Generator(device=cuda).manual_seed(n_parts)
+    rows = torch.empty((2048, s), dtype=torch.float32,
+                       device=cuda).bernoulli_(0.02, generator=g)
+    tags = torch.randint(-1, int(folded["req"].shape[0]) + 2, (2048,),
+                         generator=g, device=cuda, dtype=torch.int32)
+    args = (rows, tags, folded["req"], folded["wild"], folded["in_state"],
+            folded["selfloop"])
+    before = nt.nfa_transition.launches
+    got = nt.nfa_transition(*args)
+    want = nt.nfa_transition_plain(*args)
+    torch.cuda.synchronize()
+    assert nt.nfa_transition.launches == before + 1
+    assert want.any() and torch.equal(got, want)
+
+
+def test_sharded_hot_swap_with_batches_in_flight_on_card(cuda):
+    """The hot-swap scenario on a query-sharded stage: the subscribe's
+    one-part restack is made on the shadow builder's stream while batches
+    of the old epoch are in flight on the workers' streams."""
+    assert swap_with_batches_in_flight(str(cuda), query_shards=2) \
+        == [0, 0, 0, 1]
+
+
+def test_sharded_subscribe_on_another_stream_leaves_inflight_batch(cuda):
+    """A batch of the old plan is launched, not waited for, on one stream;
+    a subscribe is prepared and committed on another.  The old batch's
+    lanes equal the old plan's routes (the restack wrote new tensors), and
+    the new plan, read on the first stream after its wait, routes as a
+    fresh stage on the live set."""
+    from repro_torch.data.filter_stage import FilterStage
+
+    dtd, d, qs, raw = serve_workload(n_docs=8, seed=4)
+    st = FilterStage(qs, d, n_shards=2, batch_size=8, device=str(cuda),
+                     query_shards=2)
+    cpu = FilterStage(qs, d, n_shards=2, batch_size=8, device="cpu",
+                      query_shards=2)
+    ep = st.plan_epoch()
+    bb = ByteBatch.from_buffers(raw, bucket=st.byte_bucket)
+    reader, writer = torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)
+    with torch.cuda.stream(reader):
+        ep.sharded.wait()
+        lanes = sf.stream_filter_bytes(
+            torch.from_numpy(bb.data).to(cuda),
+            torch.from_numpy(one_doc_starts(len(raw))).to(cuda),
+            *st._eng._folded(ep.sharded.stacked()), max_depth=64)
+    new_q = gen_profiles(dtd, n=1, length=3, seed=77)[0]
+    with torch.cuda.stream(writer):
+        gid = st.commit(st.prepare_subscribe(new_q))
+    assert gid == 16
+    torch.cuda.synchronize()
+    want_old = cpu._eng.filter_bytes_sharded(bb, cpu.sharded_)
+    with torch.cuda.stream(reader):
+        m, f = st._eng._sharded_lanes_to_queries(
+            lanes[0].transpose(1, 2), lanes[1].transpose(1, 2), ep.sharded)
+        got_new = st._filter_bytebatch(raw, record=False)
+    np.testing.assert_array_equal(m[:, 0].cpu().numpy(), want_old.matched)
+    np.testing.assert_array_equal(f[:, 0].cpu().numpy(),
+                                  want_old.first_event)
+    cpu.subscribe(new_q)
+    want_new = cpu._filter_bytebatch(raw, record=False)
+    np.testing.assert_array_equal(got_new.matched, want_new.matched)
+    np.testing.assert_array_equal(got_new.first_event, want_new.first_event)

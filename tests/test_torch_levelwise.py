@@ -343,16 +343,20 @@ class TestEngines:
         assert got.value.doc_indices == want.value.doc_indices == (1,)
 
     def test_options_reach_the_engines(self):
-        """``event_bucket`` (what the stage passes) is taken, not refused;
-        unported options are refused as on every engine."""
+        """``event_bucket`` (what the stage passes) and ``minimize`` are
+        taken, not refused; unported options are refused as on every
+        engine."""
         dtd, d, qs, nfa, docs = level_workload(seed=11, n_docs=2)
         for name in ("levelwise", "wavefront"):
             eng = engines.create(name, nfa, dictionary=d, device="cpu",
                                  event_bucket=64)
             assert eng._event_bucket(None) == 64
-            with pytest.raises(NotImplementedError, match="minimize"):
+            eng = engines.create(name, nfa, dictionary=d, device="cpu",
+                                 minimize=True)
+            assert eng.minimize_stats is not None
+            with pytest.raises(NotImplementedError, match="plan_cache"):
                 engines.create(name, nfa, dictionary=d, device="cpu",
-                               minimize=True)
+                               plan_cache="cache")
         eng = engines.create("wavefront", nfa, dictionary=d, device="cpu")
         assert (eng.chunk, eng.use_kernel, eng.device.type) \
             == (128, False, "cpu")

@@ -507,3 +507,10 @@ def test_hot_swap_with_batches_in_flight():
     batches filtered under the old epoch are still undelivered; each
     request's verdicts match its epoch's live set."""
     assert swap_with_batches_in_flight("cpu") == [0, 0, 0, 1]
+
+
+def test_sharded_hot_swap_with_batches_in_flight():
+    """The same scenario on a query-sharded stage: the subscribe
+    recompiles one part and restacks it in new tensors while batches of
+    the old epoch are undelivered."""
+    assert swap_with_batches_in_flight("cpu", query_shards=2) == [0, 0, 0, 1]

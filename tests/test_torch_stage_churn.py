@@ -498,15 +498,34 @@ class TestShadowSwap:
 
 
 # ----------------------------------------------------- what raises instead
-@pytest.mark.parametrize("kw", [{"query_shards": 2}, {"data_shards": 2},
+@pytest.mark.parametrize("kw", [{"data_shards": 2},
                                 {"query_shards": 2, "data_shards": 2}],
-                         ids=["query", "data", "both"])
+                         ids=["data", "both"])
 def test_sharding_is_not_ported_and_raises(kw):
-    """Sharded and 2-D stages are ROADMAP items 7 and 13: asking for one
-    raises, never silently runs unsharded."""
+    """The 2-D (data x model) stage is ROADMAP item 13: asking for one
+    raises, never silently runs without the data axis."""
     profiles, d, _, _ = _workload(n_docs=1)
-    with pytest.raises(NotImplementedError, match="item 7.*item 13"):
+    with pytest.raises(NotImplementedError, match="item 13"):
         _stage(profiles, d, **kw)
+
+
+@pytest.mark.parametrize("kw", ROUTES, ids=ROUTE_IDS)
+def test_query_sharded_stage_routes_as_jax(kw):
+    """A query-sharded stage (``query_shards=2``) is ported: its routes
+    equal the JAX package's sharded stage (dense) and the unsharded
+    stage's, dense and ``sparse=True``, before and after churn."""
+    profiles, d, dtd, raw = _workload(n_docs=8)
+    jprofiles, jd, jdtd, jraw = _jax_workload(n_docs=8)
+    stage = _stage(profiles, d, query_shards=2, **kw)
+    want = _stage_routes(_jax_stage(jprofiles, jd, query_shards=2), jraw)
+    assert want and _stage_routes(stage, raw) == want
+    assert _stage_routes(_stage(profiles, d), raw) == want
+    jstage = _jax_stage(jprofiles, jd, query_shards=2)
+    for st, g in ((stage, gen_profiles), (jstage, jax_profiles)):
+        st.subscribe(g(dtd if st is stage else jdtd, n=1, length=3,
+                       seed=57)[0])
+        st.unsubscribe(3)
+    assert _stage_routes(stage, raw) == _stage_routes(jstage, jraw)
 
 
 # ------------------------------------------------------------ kernel build

@@ -104,7 +104,7 @@ class TestEngineAgainstScan:
 class TestEngineOptions:
     @pytest.mark.parametrize("opts,exc", [
         ({"plan_cache": object()}, NotImplementedError),
-        ({"minimize": True}, NotImplementedError),
+        ({"smem_budget": 1 << 10}, NotImplementedError),
         ({"vmem_budget": 1 << 20}, NotImplementedError),
         ({"autotune": "measured"}, NotImplementedError),
         ({"kernel": "scan"}, NotImplementedError),
