@@ -91,7 +91,29 @@ printed as it runs; any failure exits non-zero:
    request: K5, then K6 folded over the parts' states once per chunk
    step, routing as the streaming stage; (d) the chaos drill,
    ``run_chaos_trace(48)`` on the card with every check passing;
-9. the end-to-end line, one ``{"kernels": [...]}`` line, the card line,
+9. the rest of the one-card API: (a) the plan cache: phase 3's stage and
+   phase 8's ``query_shards=4`` stage (and phase 6's wavefront stage with
+   K6) each built twice on one ``PlanCache`` directory in a temporary
+   directory: the first build only misses, the second only hits, with
+   tables equal to the first's, and routes the first request of phase 3
+   (K2) and, as a sparse stage, of phase 4 (K3) as those phases did; cold
+   and warm build seconds beside ``compile_queries`` alone; then one
+   part's ``manifest.json`` deleted: one miss, the entry rewritten, the
+   same routes; (b) ``repro_torch.kernels.autotune.search`` over one
+   request of phase 3 (K2, K3): every candidate's effective ``blk`` and
+   ``G``, each distinct launch shape timed once, and an
+   ``autotune="measured"`` stage that reads the winner and routes as the
+   default stage; (c) ``TwigFilter(engine="streaming")`` with 1,024 twigs
+   over phase 4's 64 messages (K1 a message), equal to the CPU filter and
+   the oracle; (d) ``ops.predecode`` (K5), ``ops.decode_document`` of a
+   1 MB document (K5), ``ops.nfa_transition`` at phase 2's K6 shapes given
+   ``parent_1h`` (K6) and ``ops.StreamFilterKernelEngine`` (K1), each
+   against its plain version or the stage; (e)
+   ``XMLBytePipeline.from_filtered_bytes`` through a sparse stage (K3),
+   ``launch.serve.build_stage`` twice on one plan cache,
+   ``route_requests`` over events (K1) and bytes (K2) and
+   ``serve_continuous`` on a replay trace (K2), all with equal queues;
+10. the end-to-end line, one ``{"kernels": [...]}`` line, the card line,
    and the result line.
 """
 from __future__ import annotations
@@ -148,6 +170,21 @@ SERVE_CHURN_REQUESTS, SUBSCRIBE_AT, UNSUBSCRIBE_AT = 16_384, 0, 1024
 # default 48 requests
 SHARD_PARTS, LEVEL_SHARDS = 4, 2
 SKEW_UNSUBSCRIBES, REBALANCE_TOLERANCE = 400, 0.02
+
+# phase 9, the rest of the one-card API: the measured autotune's grid over
+# one request of phase 3's documents (every block size up to the one the
+# 10,000-profile plan grows to, both segment targets); 1,024 twigs in the
+# three shapes of benchmarks/bench_twig.py over phase 4's messages, held
+# against the CPU filter on all of them and against the oracle, about
+# 1.6 s a message on the host, on the first 8; the serving CLI's stage
+# (32 profiles, 2 replicas) over 8 requests
+AUTOTUNE_BLKS, AUTOTUNE_SEGMENT_TARGETS = (256, 512, 1024, 2048), (2048, 4096)
+AUTOTUNE_TRIALS = 2
+N_TWIGS, TWIG_ORACLE_DOCS = 1024, 8
+# each plan-cache build kind (cold, warm) is timed this many times and
+# reported by its median: single builds on the shared host spread by 2x
+CACHE_REPEATS = 3
+CLI_REPLICAS, CLI_REQUESTS = 2, 8
 
 # card peaks (H100 SXM data sheet): HBM bytes/s, the 32-bit non-tensor
 # rate, which bounds the kernels' integer bit operations and K6's float32
@@ -1603,6 +1640,444 @@ def sharded_phase(dtd, d, qs, bufs, run, short, level_ref, layout, k2_ms,
     return out
 
 
+# ----------------------------------------------------------------- phase 9
+def same_tables(a, b) -> bool:
+    """Two plans with the same tables, table for table, bit for bit."""
+    return sorted(a.tables) == sorted(b.tables) and all(
+        a[k].dtype == b[k].dtype and torch.equal(a[k], b[k])
+        for k in a.tables)
+
+
+def cache_builds(what: str, build, directory: str, *,
+                 sparse_build: bool = False):
+    """A stage built cold and warm on plan caches, CACHE_REPEATS times each:
+    every cold build in a directory of its own (only misses), every warm
+    build on the first cold build's directory (only hits, as many as it
+    missed, tables equal to its), and with ``sparse_build`` one more warm
+    build as a sparse stage.  Returns ``(cold, warm, warm_sparse)`` stages
+    (the first of each), the first cold build's misses, and the seconds of
+    every build by kind."""
+    from repro_torch.checkpoint import PlanCache
+
+    def timed(cache, sparse=False):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        stage = build(cache, sparse)
+        torch.cuda.synchronize()
+        return stage, time.perf_counter() - t
+
+    secs = {"cold": [], "warm": [], "warm_sparse": []}
+    first = {}
+    for i in range(CACHE_REPEATS):
+        cache = PlanCache(directory if i == 0 else f"{directory}-{i}")
+        stage, s = timed(cache)
+        secs["cold"].append(s)
+        check(cache.hits == 0 and cache.misses > 0
+              and cache.misses == first.get("misses", cache.misses),
+              f"(a) {what}: cold build {i} counted {cache.hits} hits, "
+              f"{cache.misses} misses")
+        first.setdefault("misses", cache.misses)
+        first.setdefault("cold", stage)
+        del stage
+    misses, cold = first["misses"], first["cold"]
+    kinds = ["warm"] * CACHE_REPEATS + (["warm_sparse"] if sparse_build
+                                        else [])
+    for i, kind in enumerate(kinds):
+        cache = PlanCache(directory)
+        stage, s = timed(cache, kind == "warm_sparse")
+        secs[kind].append(s)
+        check(cache.misses == 0 and cache.hits == misses,
+              f"(a) {what}: warm build {i} counted {cache.hits} hits and "
+              f"{cache.misses} misses against the cold build's {misses}")
+        pairs = [(cold._eng.plan_, stage._eng.plan_)]
+        if cold.sharded_ is not None:
+            pairs += list(zip(cold.sharded_.plans, stage.sharded_.plans))
+            pairs.append((cold.sharded_.stacked(), stage.sharded_.stacked()))
+        check(all(same_tables(x, y) for x, y in pairs),
+              f"(a) {what}: warm build {i}'s tables differ from the cold "
+              f"build's")
+        first.setdefault(kind, stage)
+        del stage
+    return ((cold, first["warm"], first.get("warm_sparse")), misses,
+            secs)
+
+
+def api_phase(dtd, d, qs, bufs, run, short, level_ref, layout, dev) -> dict:
+    """Phase 9: the rest of the one-card API on the card: the plan cache,
+    the measured autotune, twig filtering, the ops wrappers, the token
+    pipeline and the serving CLI's routing functions."""
+    import tempfile
+    from types import SimpleNamespace
+
+    from repro_torch.checkpoint import PlanCache
+    from repro_torch.core.events import (ByteBatch, EventBatch, decode_bytes,
+                                         encode_bytes)
+    from repro_torch.core.nfa import compile_queries
+    from repro_torch.core.twig import TwigFilter
+    from repro_torch.data.filter_stage import FilterStage
+    from repro_torch.data.generator import gen_corpus
+    from repro_torch.data.tokens import XMLBytePipeline
+    from repro_torch.kernels import autotune, ops, ref
+    from repro_torch.kernels import nfa_transition as nt
+    from repro_torch.launch import serve
+
+    say("phase 9: the plan cache, the measured autotune, twig filtering, "
+        "the ops wrappers, the token pipeline and the serving CLI")
+    out = {"launches": {k: 0 for k in counts()}}
+
+    def drive9(what, fn, want, exact=None):
+        res, got = drive(what, fn, set(want))
+        for k, n in got.items():
+            out["launches"][k] += n
+        for k, n in (exact or {}).items():
+            check(got[k] == n, f"{what} launched {k} {got[k]} times, not {n}")
+        return res
+
+    first3 = [r for r in run["routes"] if r[0] < BATCH]
+    first4 = [r for r in short["routes"] if r[0] < BATCH]
+    level_payloads = request_payloads(bufs, 1)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cache_")
+    try:
+        # (a) the plan cache: cold and warm builds of phases 3, 8 and 6's
+        # plans, each CACHE_REPEATS times (medians); the NFA compile, which
+        # no cache skips, timed alone
+        def median_compile(profiles):
+            times = []
+            for _ in range(CACHE_REPEATS):
+                t = time.perf_counter()
+                compile_queries(profiles, d, shared=True)
+                times.append(time.perf_counter() - t)
+            return float(np.median(times))
+
+        nfa_s = median_compile(qs)
+        cache_out = {"compile_queries_s": nfa_s}
+        kept = {}
+        for what, kw in (("unsharded", {}),
+                         (f"query_shards={SHARD_PARTS}",
+                          {"query_shards": SHARD_PARTS})):
+            def build(cache, sparse, kw=kw):
+                return FilterStage(
+                    profiles=qs, dictionary=d, engine="streaming",
+                    batch_size=BATCH, device=str(dev), sparse=sparse,
+                    engine_options={"plan_cache": cache,
+                                    "match_cap": SPARSE_CAP}, **kw)
+
+            directory = os.path.join(tmp, what)
+            (_, warm, warm_sparse), misses, secs = cache_builds(
+                what, build, directory, sparse_build=True)
+            got = drive9(f"(a) {what}, warm build: route_bytes, first request "
+                         f"of phase 3", lambda: routed(warm.route_bytes(
+                             run["payloads"][:BATCH])), {"K2"}, {"K2": 1})
+            check(got == first3, f"(a) {what}: the warm build routes phase "
+                                 f"3's first request differently")
+            got = drive9(f"(a) {what}, warm sparse build: route_bytes, first "
+                         f"request of phase 4", lambda: routed(
+                             warm_sparse.route_bytes(
+                                 short["payloads"][:BATCH])),
+                         {"K3"}, {"K3": 1})
+            check(got == first4, f"(a) {what}: the warm sparse build routes "
+                                 f"phase 4's first request differently")
+            cold_s, warm_s = (float(np.median(secs[k]))
+                              for k in ("cold", "warm"))
+            cache_out[what] = {"cold_s": cold_s, "warm_s": warm_s,
+                               "secs": secs, "entries": misses}
+            say(f"(a) {what}: {misses} entries; median of "
+                f"{CACHE_REPEATS} cold builds {cold_s:.3f} s "
+                f"({', '.join(f'{x:.3f}' for x in secs['cold'])}), of "
+                f"{CACHE_REPEATS} warm builds {warm_s:.3f} s "
+                f"({', '.join(f'{x:.3f}' for x in secs['warm'])}; "
+                f"{warm_s / cold_s:.2f} x), a warm sparse build "
+                f"{secs['warm_sparse'][0]:.3f} s (all hits, tables equal); "
+                f"compile_queries alone {nfa_s:.3f} s (median), so the plan "
+                f"part is {cold_s - nfa_s:.3f} s cold and "
+                f"{warm_s - nfa_s:.3f} s warm; both warm builds route as "
+                f"phases 3, 4 and 8")
+            kept[what] = (directory, build, warm)
+            del warm, warm_sparse
+        # a torn part entry: exactly one miss, rewritten, the same routes
+        directory, build, warm = kept[f"query_shards={SHARD_PARTS}"]
+        sp = warm.sharded_
+        key = warm._eng.plan_cache_key(sp.part_nfas[0], sp.pads)
+        os.remove(os.path.join(PlanCache(directory)._path(key),
+                               "manifest.json"))
+        cache = PlanCache(directory)
+        torn = build(cache, False)
+        check(cache.misses == 1 and key in cache,
+              f"(a) after a part's manifest was deleted the build counted "
+              f"{cache.misses} misses and {cache.hits} hits; entry rewritten: "
+              f"{key in cache}")
+        got = drive9("(a) torn entry, rebuilt: route_bytes, first request of "
+                     "phase 3", lambda: routed(torn.route_bytes(
+                         run["payloads"][:BATCH])), {"K2"}, {"K2": 1})
+        check(got == first3, "(a) the stage rebuilt past a torn entry routes "
+                             "differently")
+        say(f"(a) a part's manifest.json deleted: the next build had 1 miss "
+            f"and {cache.hits} hits, rewrote the entry, routes the same")
+        del kept, warm, torn, sp
+        lqs = level_profiles(dtd)
+
+        def level_build(cache, sparse):
+            return FilterStage(profiles=lqs, dictionary=d, engine="wavefront",
+                               batch_size=BATCH, device=str(dev),
+                               engine_options={"plan_cache": cache,
+                                               "use_kernel": True})
+
+        level_nfa_s = median_compile(lqs)
+        (_, level_warm, _), misses, secs = cache_builds(
+            "wavefront", level_build, os.path.join(tmp, "wavefront"))
+        level_plan = level_warm._eng.plan_
+        got = drive9("(a) wavefront use_kernel=True, warm build: route_bytes, "
+                     "first request of phase 6",
+                     lambda: routed(level_warm.route_bytes(level_payloads)),
+                     {"K5", "K6"})
+        check(got == level_ref["want_first"], "(a) the warm wavefront build "
+                                              "routes differently")
+        cold_s, warm_s = (float(np.median(secs[k])) for k in ("cold", "warm"))
+        cache_out["wavefront"] = {"cold_s": cold_s, "warm_s": warm_s,
+                                  "secs": secs,
+                                  "compile_queries_s": level_nfa_s,
+                                  "entries": misses}
+        say(f"(a) wavefront at {LEVEL_PROFILES} profiles: median cold build "
+            f"{cold_s:.3f} s ({', '.join(f'{x:.3f}' for x in secs['cold'])}),"
+            f" warm {warm_s:.3f} s "
+            f"({', '.join(f'{x:.3f}' for x in secs['warm'])}; "
+            f"{warm_s / cold_s:.2f} x; compile_queries alone "
+            f"{level_nfa_s:.3f} s); routes as phase 6")
+        out["cache"] = cache_out
+        del level_warm
+
+        # (b) the measured autotune over one request of phase 3
+        nfa = compile_queries(qs, d, shared=True)
+        bb = ByteBatch.from_buffers(run["payloads"][:BATCH],
+                                    bucket=run["stage"].byte_bucket)
+        cache_file = os.path.join(tmp, "autotune.json")
+        t = time.perf_counter()
+        best, rows = drive9(
+            f"(b) autotune.search blk {AUTOTUNE_BLKS} x segment_target "
+            f"{AUTOTUNE_SEGMENT_TARGETS}, trials={AUTOTUNE_TRIALS}",
+            lambda: autotune.search(
+                nfa, d, bb, max_depth=MAX_DEPTH, blks=AUTOTUNE_BLKS,
+                segment_targets=AUTOTUNE_SEGMENT_TARGETS,
+                trials=AUTOTUNE_TRIALS, device=dev, cache_file=cache_file),
+            {"K2", "K3"})
+        search_s = time.perf_counter() - t
+        for i, r in enumerate(rows):
+            say(f"(b) candidate {i}: blk {r['blk']} segment_target "
+                f"{r['segment_target']} -> " + (
+                    f"skipped: {r['skipped']}" if "skipped" in r else
+                    f"effective blk {r['blk_eff']}, G {r['n_blocks']}, "
+                    f"{r['seconds'] * 1e3:.3f} ms" + (
+                        f" (fell in with candidate {r['same_as']}, not "
+                        f"timed again)" if "same_as" in r else "")))
+        timed = [r for r in rows if "seconds" in r and "same_as" not in r]
+        distinct = {(r["blk_eff"], r["n_blocks"], r["segment_target"])
+                    for r in rows if "seconds" in r}
+        check(len(timed) == len(distinct),
+              f"(b) {len(timed)} candidates timed for {len(distinct)} "
+              f"distinct launch shapes")
+        key = autotune.plan_key(autotune.backend(dev),
+                                -(-nfa.n_states // 32) * 32, nfa.n_tags,
+                                MAX_DEPTH, 32)
+        check(autotune.cached_config(key, cache_file) is not None,
+              f"(b) no winner cached under {key}")
+        old_env = os.environ.get(autotune.CACHE_ENV)
+        os.environ[autotune.CACHE_ENV] = cache_file
+        try:
+            measured = FilterStage(profiles=qs, dictionary=d,
+                                   engine="streaming", batch_size=BATCH,
+                                   device=str(dev),
+                                   engine_options={"autotune": "measured"})
+        finally:
+            if old_env is None:
+                del os.environ[autotune.CACHE_ENV]
+            else:
+                os.environ[autotune.CACHE_ENV] = old_env
+        meta = measured._eng.plan_.meta
+        check((meta["blk"], meta["segment_target"])
+              == (best["blk_eff"], best["segment_target"]),
+              f"(b) the measured engine's plan {meta} is not the winner "
+              f"{best}")
+        got = drive9("(b) autotune='measured' stage: route_bytes, first "
+                     "request of phase 3", lambda: routed(
+                         measured.route_bytes(run["payloads"][:BATCH])),
+                     {"K2"}, {"K2": 1})
+        check(got == first3, "(b) the measured stage routes differently")
+        out["autotune"] = {"rows": rows, "best": best, "search_s": search_s,
+                           "timed": len(timed), "key": key}
+        say(f"(b) search in {search_s:.2f} s: {len(rows)} candidates, "
+            f"{len(timed)} timed; winner blk {best['blk']} (effective "
+            f"{best['blk_eff']}, G {best['n_blocks']}) segment_target "
+            f"{best['segment_target']} at {best['seconds'] * 1e3:.3f} ms; "
+            f"the measured stage routes as the default stage")
+        del measured, nfa
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # (c) twig filtering over phase 4's messages
+    names = dtd.tag_names
+    rng = np.random.default_rng(0)
+    twigs = []
+    for i in range(N_TWIGS):
+        a, b, c = rng.choice(len(names), 3, replace=False)
+        twigs.append((f"{names[a]}[//{names[b]}][//{names[c]}]",
+                      f"{names[a]}[{names[b]}]//{names[c]}",
+                      f"{names[a]}//{names[b]}")[i % 3])
+    streams = short["streams"]
+    f = TwigFilter(twigs, d, engine="streaming", device=str(dev))
+    f.filter_document(streams[0])                        # warm-up
+    f.stats.update(stage2_checks=0, stage2_rejects=0)
+    t = time.perf_counter()
+    got = drive9(f"(c) TwigFilter({N_TWIGS} twigs, engine='streaming') over "
+                 f"{len(streams)} messages", lambda: [
+                     f.filter_document(ev) for ev in streams],
+                 {"K1"}, {"K1": len(streams)})
+    twig_s = time.perf_counter() - t
+    # the path engine's call alone (a batch of one, K1, the verdicts back):
+    # the rest of a message is the twig join and stage 2, on the host
+    t = time.perf_counter()
+    for ev in streams:
+        f._eng.filter_document(ev)
+    engine_s = time.perf_counter() - t
+    cpu = TwigFilter(twigs, d, engine="streaming", device="cpu")
+    for ev, res in zip(streams, got):
+        want = cpu.filter_document(ev)
+        check(np.array_equal(res.matched, want.matched)
+              and np.array_equal(res.first_event, want.first_event),
+              "(c) the twig filter on the card differs from the CPU's")
+    check(cpu.stats == f.stats, f"(c) stats {f.stats} != {cpu.stats}")
+    oracle = TwigFilter(twigs, d, engine="oracle", device="cpu")
+    for ev, res in zip(streams[:TWIG_ORACLE_DOCS], got):
+        want = oracle.filter_document(ev)
+        check(np.array_equal(res.matched, want.matched)
+              and np.array_equal(res.first_event, want.first_event),
+              "(c) the twig filter on the card differs from the oracle")
+    n_matched = sum(int(r.matched.sum()) for r in got)
+    check(n_matched > 0, "(c) no twig matched")
+    out["twig"] = {"twigs": N_TWIGS, "paths": len(f.paths),
+                   "states": f.nfa.n_states,
+                   "ms_per_doc": twig_s / len(streams) * 1e3,
+                   "engine_ms_per_doc": engine_s / len(streams) * 1e3,
+                   "matches": n_matched, "stats": dict(f.stats)}
+    say(f"(c) {N_TWIGS} twigs ({len(f.paths)} paths, {f.nfa.n_states} "
+        f"states): {out['twig']['ms_per_doc']:.3f} ms a message, of which "
+        f"the path engine's call {out['twig']['engine_ms_per_doc']:.3f} ms "
+        f"(K1 and its batch of one), the rest the join and stage 2; "
+        f"{n_matched} matches, stats {f.stats}; equal to the CPU filter on "
+        f"all {len(streams)} and to the oracle on the first "
+        f"{TWIG_ORACLE_DOCS}")
+    del f, cpu, oracle
+
+    # (d) the ops wrappers against their plain versions on the card
+    sbb = ByteBatch.from_buffers(short["payloads"], bucket=1024)
+    data = torch.from_numpy(sbb.data).to(dev)
+    kind, tag = drive9("(d) ops.predecode, phase 4's byte batch",
+                       lambda: ops.predecode(data), {"K5"}, {"K5": 1})
+    pk, pt = ref.predecode(data)
+    check(torch.equal(kind, pk) and torch.equal(tag, pt),
+          "(d) ops.predecode differs from the plain version")
+    ev = drive9("(d) ops.decode_document of a 1 MB document",
+                lambda: ops.decode_document(bufs[0], d, device=dev),
+                {"K5"}, {"K5": 1})
+    host = decode_bytes(bufs[0], d.symbol_value_table())
+    check(np.array_equal(ev.kind, host.kind)
+          and np.array_equal(ev.tag_id, host.tag_id),
+          "(d) ops.decode_document differs from the host decode")
+    say(f"(d) ops.predecode {tuple(data.shape)} and ops.decode_document "
+        f"({len(bufs[0])} bytes, {len(ev)} events) equal their plain "
+        f"versions")
+    for label, rows in (("wavefront step", layout["step_rows"]),
+                        ("widest level", layout["level_rows"])):
+        args = k6_inputs(level_plan, rows, rows, dev)
+        one_hot = level_plan["parent_1h"]
+        k = drive9(f"(d) ops.nfa_transition at the {label} "
+                   f"({rows}, {args[0].shape[1]}), given parent_1h",
+                   lambda: ops.nfa_transition(*args[:4], one_hot, args[5]),
+                   {"K6"}, {"K6": 1})
+        p = nt.nfa_transition_plain(*args)
+        check(torch.equal(k, p), f"(d) ops.nfa_transition at the {label} "
+                                 f"differs from the plain version")
+        del args, k, p
+        torch.cuda.empty_cache()
+    del level_plan
+    say("(d) ops.nfa_transition at both K6 shapes equals the plain gather")
+    four = streams[:4]
+    kernel_eng = ops.StreamFilterKernelEngine(qs, d, device=dev)
+    res = drive9("(d) ops.StreamFilterKernelEngine, 4 messages",
+                 lambda: [kernel_eng.filter_document(x) for x in four],
+                 {"K1"}, {"K1": 4})
+    want = run["stage"]._eng.filter_batch(EventBatch.from_streams(four))
+    check(all(np.array_equal(r.matched, want.matched[i])
+              and np.array_equal(r.first_event, want.first_event[i])
+              for i, r in enumerate(res)),
+          "(d) StreamFilterKernelEngine differs from the stage's engine")
+    say(f"(d) StreamFilterKernelEngine (blk 256, effective "
+        f"{kernel_eng._eng.plan_.meta['blk']}) equals the stage's verdicts "
+        f"on 4 messages")
+    del kernel_eng
+
+    # (e) the token pipeline and the serving CLI's routing functions
+    sparse = FilterStage(profiles=qs, dictionary=d, engine="streaming",
+                         sparse=True, batch_size=BATCH, device=str(dev),
+                         engine_options={"match_cap": SPARSE_CAP})
+    pipes = [drive9("(e) XMLBytePipeline.from_filtered_bytes, phase 4's "
+                    "payloads, sparse stage", lambda: XMLBytePipeline.
+                    from_filtered_bytes(short["payloads"], sparse, batch=8,
+                                        seq_len=512), {"K3"},
+                    {"K3": REQUESTS}) for _ in range(2)]
+    kept_docs = sorted({r[0] for r in short["routes"]})
+    check(pipes[0].payloads == [short["payloads"][i] for i in kept_docs],
+          "(e) the pipeline kept other payloads than route matches")
+    for step in range(4):
+        a, b = pipes[0].batch_at(step), pipes[1].batch_at(step)
+        check(all(np.array_equal(a[k], b[k]) for k in a),
+              "(e) two pipelines gave different batches")
+    say(f"(e) from_filtered_bytes kept {len(kept_docs)} of "
+        f"{len(short['payloads'])} payloads, the routed ones; two pipelines "
+        f"give equal batches")
+    del sparse, pipes
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as cli_dir:
+        builds = []
+        for _ in range(2):
+            stage, cli_dtd = serve.build_stage(CLI_REPLICAS,
+                                               engine="streaming",
+                                               plan_cache=cli_dir,
+                                               device=str(dev))
+            builds.append(stage)
+        c0, c1 = (s._eng.plan_cache for s in builds)
+        check(c0.misses > 0 and (c1.hits, c1.misses) == (c0.misses, 0),
+              f"(e) build_stage twice: {c0.hits}/{c0.misses} then "
+              f"{c1.hits}/{c1.misses} hits/misses")
+    stage = builds[1]
+    docs = gen_corpus(cli_dtd, n_docs=CLI_REQUESTS, nodes_per_doc=60, seed=1)
+    raw = [encode_bytes(x, text_fill=TEXT_FILL) for x in docs]
+    by_events = drive9("(e) route_requests, ingest events",
+                       lambda: serve.route_requests(stage, docs), {"K1"})
+    by_bytes = drive9("(e) route_requests, ingest bytes",
+                      lambda: serve.route_requests(stage, docs,
+                                                   ingest="bytes", raw=raw),
+                      {"K2"})
+    check(by_events == by_bytes, "(e) route_requests: events and bytes "
+                                 "queues differ")
+    args = SimpleNamespace(arrival="replay", rate=2000.0, seed=0,
+                           batch=stage.batch_size, deadline_ms=10.0,
+                           queue_cap=64, max_inflight=2, overload="shed",
+                           latency_json=None)
+    queues, slo = drive9("(e) serve_continuous, replay trace",
+                         lambda: serve.serve_continuous(stage, raw, args),
+                         {"K2"})
+    check(queues == by_bytes and slo["shed"] == 0,
+          f"(e) serve_continuous queues {queues} != {by_bytes} "
+          f"(shed {slo['shed']})")
+    out["cli"] = {"queues": [len(q) for q in queues], "p99_ms": slo["p99_ms"]}
+    say(f"(e) build_stage twice: the second build {c1.hits} hits, 0 misses; "
+        f"route_requests (events, bytes) and serve_continuous (replay) give "
+        f"the same queues {[len(q) for q in queues]}")
+    return out
+
+
 # ------------------------------------------------------------------- main
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1639,10 +2114,11 @@ def main() -> int:
     serving = serve_phase(dtd, d, qs, run, short, dev)
     sharded = sharded_phase(dtd, d, qs, bufs, run, short, level_ref, layout,
                             t["K2"][0], dev)
+    api = api_phase(dtd, d, qs, bufs, run, short, level_ref, layout, dev)
 
     s = run["stats"]
     card = card_line()
-    say(f"phase 9: end to end on {card}: {len(run['payloads'])} documents, "
+    say(f"phase 10: end to end on {card}: {len(run['payloads'])} documents, "
         f"{run['n_bytes']} bytes in {run['e2e_s']:.3f} s = "
         f"{len(run['payloads']) / run['e2e_s']:.1f} docs/s, "
         f"{run['n_bytes'] / run['e2e_s'] / 1e6:.1f} MB/s (host clock around "
@@ -1660,6 +2136,15 @@ def main() -> int:
         f"{sharded['K2_ms']:.3f} ms a request, subscribe "
         f"{sharded['churn']['subscribe_s']:.3f} s, unsubscribe commit "
         f"{sharded['churn']['unsubscribe_commit_ms']:.3f} ms"
+        + f"; plan cache: streaming cold "
+        f"{api['cache']['unsharded']['cold_s']:.3f} s / warm "
+        f"{api['cache']['unsharded']['warm_s']:.3f} s, sharded cold "
+        f"{api['cache'][f'query_shards={SHARD_PARTS}']['cold_s']:.3f} s / "
+        f"warm {api['cache'][f'query_shards={SHARD_PARTS}']['warm_s']:.3f} "
+        f"s, compile_queries {api['cache']['compile_queries_s']:.3f} s; "
+        f"autotune winner blk {api['autotune']['best']['blk']} "
+        f"(effective {api['autotune']['best']['blk_eff']}); twigs "
+        f"{api['twig']['ms_per_doc']:.3f} ms a message"
         + f"; serve loop: sparse pub-sub p50 "
         f"{serving['sparse']['p50_ms']:.3f} / p99 "
         f"{serving['sparse']['p99_ms']:.3f} ms at "
@@ -1694,6 +2179,9 @@ def main() -> int:
         row["sharded_launches"] = (sharded["level"]["launches"][key]
                                    if key in ("K5", "K6")
                                    else sharded["launches"][key])
+        # phase 9: the plan-cache routes, the autotune search, twigs, the
+        # ops wrappers and the serving CLI, each launch counted
+        row["api_launches"] = api["launches"][key]
         if key in ("K1", "K2", "K3", "K4"):
             row["sharded_blocks"] = sharded["folded_blocks"]
         elif key == "K6":

@@ -1,0 +1,183 @@
+# Copy of src/repro/checkpoint/store.py:46-121 and :225-277 (the port imports
+# nothing of the JAX package), with PlanCache.load added.
+"""The crash-safe plan cache of the port.
+
+Layout per entry::
+
+    <dir>/plan_<key>/
+        manifest.json    # keys, engine name, plan metadata
+        arrays.npz       # one entry per plan table
+
+Entry contents are fsynced, the entry directory is written as
+``<name>.tmp`` then ``os.rename``\\ d (POSIX atomic), and a pointer goes
+through an fsynced temp file and ``os.replace``: a crash at any point
+leaves the old entry or the new one, never a torn entry.  A torn or
+unreadable entry reads as a miss and is overwritten by the next ``put``.
+
+:class:`PlanCache` keeps compiled filter-plan tables under a content hash
+(:meth:`repro_torch.core.engines.base.FilterEngine.plan_cache_key`), so a
+cold start or a crash recovery skips the compile.  The port adds
+:meth:`PlanCache.load`, a ``get`` whose caller may refuse an entry (the
+engines rebuild a hit through the table checks of
+:mod:`repro_torch.convert`; an entry they refuse counts as a miss).
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+from typing import Callable, TypeVar
+
+import numpy as np
+
+T = TypeVar("T")
+
+
+def _fsync_file(path: str) -> None:
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def _fsync_dir(path: str) -> None:
+    # directory fsync makes the rename itself durable; some filesystems
+    # refuse O_RDONLY on dirs — degrading to no-sync there is still no
+    # worse than the pre-hardening behavior
+    try:
+        fd = os.open(path, os.O_RDONLY)
+    except OSError:  # pragma: no cover - platform-dependent
+        return
+    try:
+        os.fsync(fd)
+    except OSError:  # pragma: no cover - platform-dependent
+        pass
+    finally:
+        os.close(fd)
+
+
+def _write_entry(directory: str, name: str, flat: dict[str, np.ndarray],
+                 manifest: dict) -> str:
+    """Crash-safe entry write shared by checkpoints and the plan cache.
+
+    ``<dir>/<name>.tmp/{arrays.npz, manifest.json}`` is written, each
+    file fsynced (manifest last, so a readable manifest implies readable
+    arrays), then the directory atomically renamed to ``<dir>/<name>``
+    and the parent directory fsynced — the entry either exists intact or
+    not at all.
+    """
+    tmp = os.path.join(directory, name + ".tmp")
+    final = os.path.join(directory, name)
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp)
+    np.savez(os.path.join(tmp, "arrays.npz"), **flat)
+    _fsync_file(os.path.join(tmp, "arrays.npz"))
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+        f.flush()
+        os.fsync(f.fileno())
+    _fsync_dir(tmp)
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.rename(tmp, final)
+    _fsync_dir(directory)
+    return final
+
+
+def _write_pointer(directory: str, pointer: str, value: str) -> None:
+    """Atomically (re)point ``<dir>/<pointer>`` at ``value`` via an
+    fsynced temp file + ``os.replace`` — a crash can never leave the
+    pointer missing or half-written."""
+    tmp = os.path.join(directory, pointer + ".tmp")
+    with open(tmp, "w") as f:
+        f.write(value)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, os.path.join(directory, pointer))
+    _fsync_dir(directory)
+
+
+def _valid_entry(path: str) -> bool:
+    """Entry intact: manifest readable and every key present in the npz."""
+    try:
+        with open(os.path.join(path, "manifest.json")) as f:
+            manifest = json.load(f)
+        with np.load(os.path.join(path, "arrays.npz")) as z:
+            return sorted(z.files) == sorted(manifest["keys"])
+    except Exception:
+        return False
+
+
+# ------------------------------------------------------------- plan cache
+class PlanCache:
+    """Crash-safe persisted cache of compiled filter-plan tables.
+
+    Layout: one entry per key under ``<dir>/plan_<key>/`` with the same
+    ``{arrays.npz, manifest.json}`` format — and the same fsync +
+    atomic-rename write path (:func:`_write_entry`) — as a checkpoint
+    step, so a crash mid-``put`` leaves either the old entry or the new
+    one, never a torn cache.  Keys are opaque content hashes (the engine
+    layer derives them from NFA tables × pad targets × kernel config,
+    :meth:`repro_torch.core.engines.base.FilterEngine.plan_cache_key`), so a
+    stale hit is structurally impossible: different inputs hash to a
+    different entry.
+
+    ``hits``/``misses`` count lookups for the cold-start benchmarks and
+    the cache-hit tests; a corrupt entry reads as a miss (and is
+    overwritten by the next ``put``), mirroring ``restore_latest``'s
+    walk-back semantics.
+    """
+
+    def __init__(self, directory: str) -> None:
+        self.dir = directory
+        os.makedirs(directory, exist_ok=True)
+        self.hits = 0
+        self.misses = 0
+
+    def _path(self, key: str) -> str:
+        return os.path.join(self.dir, f"plan_{key}")
+
+    def __contains__(self, key: str) -> bool:
+        return _valid_entry(self._path(key))
+
+    def get(self, key: str) -> tuple[dict[str, np.ndarray], dict] | None:
+        """→ ``(tables, manifest)`` or ``None`` (miss/corrupt entry)."""
+        d = self._path(key)
+        if not _valid_entry(d):
+            self.misses += 1
+            return None
+        with open(os.path.join(d, "manifest.json")) as f:
+            manifest = json.load(f)
+        with np.load(os.path.join(d, "arrays.npz")) as z:
+            tables = {k: z[k] for k in z.files}
+        self.hits += 1
+        return tables, manifest
+
+    def load(self, key: str,
+             build: Callable[[dict[str, np.ndarray], dict], T]) -> T | None:
+        """``build(tables, manifest)`` of the entry under ``key``, or
+        ``None`` on a miss.  An entry that ``build`` refuses with a
+        ``ValueError`` (tables that fail their checks) is a miss as a torn
+        entry is: counted with the misses, and overwritten by the next
+        ``put``."""
+        hit = self.get(key)
+        if hit is None:
+            return None
+        try:
+            return build(*hit)
+        except ValueError:
+            self.hits -= 1
+            self.misses += 1
+            return None
+
+    def put(self, key: str, tables: dict[str, np.ndarray],
+            extra: dict | None = None) -> str:
+        flat = {k: np.asarray(v) for k, v in tables.items()}
+        manifest = {"keys": sorted(flat), **(extra or {})}
+        return _write_entry(self.dir, f"plan_{key}", flat, manifest)
+
+    def keys(self) -> list[str]:
+        return sorted(d[len("plan_"):] for d in os.listdir(self.dir)
+                      if d.startswith("plan_") and not d.endswith(".tmp"))

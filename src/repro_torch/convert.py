@@ -1,9 +1,10 @@
 """Carry a plan's numpy tables into a port :class:`FilterPlan`.
 
 Each function takes one engine family's tables as numpy arrays — the
-port's own, or those of a JAX ``FilterPlan`` after ``np.asarray`` — checks
-their shapes and indices, and places them on a device, so the port can
-run on exactly the tables another build produced:
+port's own (an entry read back from the plan cache), or those of a JAX
+``FilterPlan`` after ``np.asarray`` — checks their shapes and indices,
+and places them on a device, so the port can run on exactly the tables
+another build produced:
 
 * :func:`plan_from_numpy` — a streaming plan's ``kb_*`` block tables (a
   plan without them, a scan-only plan, is refused);
@@ -34,7 +35,8 @@ BLOCK_TABLES = ("kb_tagmask", "kb_pw", "kb_pb", "kb_selfloop", "kb_init",
 
 #: plan metadata the port reads
 META_KEYS = ("max_depth", "n_states", "state_multiple", "blk", "n_blocks",
-             "block_queries", "grid_order", "segment_target", "ep_tile")
+             "block_queries", "chunk", "byte_chunk", "grid_order",
+             "segment_target", "ep_tile")
 
 
 def _as_int32(x: np.ndarray) -> np.ndarray:

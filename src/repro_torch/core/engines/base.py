@@ -1,9 +1,8 @@
 """The engine contract of the port: ``FilterPlan``, ``FilterEngine``, registry.
 
-Counterpart of ``src/repro/core/engines/base.py`` (lines 64-1002,
-1005-1122, 1139-1163, 1213-1239, 1404-1474: all but the plan cache and
-the 2-D mesh paths), for engines whose compiled tables are torch tensors
-on one device:
+Counterpart of ``src/repro/core/engines/base.py`` (lines 64-1163,
+1213-1239, 1404-1474: all but the 2-D mesh paths), for engines whose
+compiled tables are torch tensors on one device:
 
 * :class:`FilterPlan` — a frozen dict of tables plus static metadata,
   built once per profile set by :meth:`FilterEngine.plan`: tensors on one
@@ -29,6 +28,11 @@ on one device:
   :meth:`ShardedPlan.rebalance` migrates trie groups between parts.
   ``mesh=`` must be ``None``: the multi-card paths are ROADMAP queue 1
   item 13.
+* the persistent plan cache — ``plan_cache=`` (a
+  :class:`~repro_torch.checkpoint.PlanCache` or a directory): every
+  compile of a device engine goes through :meth:`FilterEngine.
+  _plan_cached`, keyed by :meth:`FilterEngine.plan_cache_key`, and a hit
+  is rebuilt through the table checks of :mod:`repro_torch.convert`.
 * the registry — the port's own :func:`register` / :func:`create` /
   :func:`names`, separate from the JAX package's.
 """
@@ -36,6 +40,9 @@ from __future__ import annotations
 
 import abc
 import dataclasses
+import hashlib
+import json
+import os
 import threading
 from typing import Any, ClassVar, Mapping, Sequence
 
@@ -102,22 +109,25 @@ def _compact_parts(matched: torch.Tensor, first: torch.Tensor,
 DEFAULT_EVENT_BUCKET = 128
 
 
-#: the JAX package's default per-program VMEM budget, which sizes its
-#: default state blocks (``REPRO_PALLAS_VMEM_BUDGET`` unset)
+#: the JAX package's default per-program VMEM and SMEM budgets, which
+#: size its default state blocks and event chunks (its
+#: ``REPRO_PALLAS_*_BUDGET`` variables unset); the ``vmem_budget=`` /
+#: ``smem_budget=`` options feed the same formula
 _TPU_VMEM_BUDGET = 4 << 20
+_TPU_SMEM_BUDGET = 8 << 10
 
 
-#: engine options the JAX package has and the port does not yet, with the
-#: ROADMAP queue item that ports each
+#: the version tag of the port's plan-cache keys, its own so that one
+#: cache directory never serves an entry of one package to the other
+PLAN_CACHE_VERSION = "repro_torch-plan-v1"
+
+
+#: engine options the JAX package has and the port does not take, and why
 NOT_PORTED = {
-    "plan_cache": "queue 1 item 10 (plan cache)",
-    "vmem_budget": "queue 1 item 11 (H100 launch-shape policy)",
-    "smem_budget": "queue 1 item 11 (H100 launch-shape policy)",
-    "autotune": "queue 1 item 11 (measured autotune)",
-    "kernel": "nothing: the streaming engine has one path per device, its "
-              "CUDA kernels on the card and their plain versions on the "
-              "CPU, so there is no scan or Pallas mode to pick",
-    "kernel_interpret": "nothing: Pallas interpret mode has no CUDA twin",
+    "kernel": "the streaming engine has one path per device, its CUDA "
+              "kernels on the card and their plain versions on the CPU, so "
+              "there is no scan or Pallas mode to pick",
+    "kernel_interpret": "Pallas interpret mode has no CUDA twin",
 }
 
 
@@ -130,6 +140,17 @@ NO_MESH = ("mesh= is not ported yet: the port runs every part of a sharded "
 def _check_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(NO_MESH)
+
+
+def _tables_digest(tables: Mapping[str, np.ndarray]) -> str:
+    """sha256 over a plan's tables (names, dtypes, shapes, bytes), written
+    with a cache entry and checked on a hit."""
+    h = hashlib.sha256()
+    for k in sorted(tables):
+        a = np.ascontiguousarray(tables[k])
+        h.update(f"{k}:{a.dtype}:{a.shape}".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
 
 
 def _record_event(device: torch.device):
@@ -646,8 +667,8 @@ class FilterEngine(abc.ABC):
         for key in options:
             if key in NOT_PORTED:
                 raise NotImplementedError(
-                    f"engine option {key}= is not ported yet: "
-                    f"{NOT_PORTED[key]}")
+                    f"engine option {key}= has no counterpart in the "
+                    f"port: {NOT_PORTED[key]}")
         if "state_multiple" in options:
             self.state_multiple = int(options.pop("state_multiple"))
         self.dictionary = dictionary
@@ -661,10 +682,19 @@ class FilterEngine(abc.ABC):
         self.minimize_stats: MinimizeStats | None = None
         if self._minimize:
             nfa, self.minimize_stats = minimize_nfa(nfa)
+        # persistent compiled-plan cache (``plan_cache=``: a PlanCache or
+        # a directory): every compile site goes through _plan_cached, so a
+        # cold start or a shadow rebuild skips the compile on a hit
+        cache = options.pop("plan_cache", None)
+        if isinstance(cache, (str, os.PathLike)):
+            from ...checkpoint.store import PlanCache
+
+            cache = PlanCache(os.fspath(cache))
+        self.plan_cache = cache
         self.nfa = nfa
         self.options = options
         self.n_queries = nfa.n_queries
-        self.plan_: FilterPlan = self.plan(nfa)
+        self.plan_: FilterPlan = self._plan_cached(nfa)
         # the plan's tables were copied to the card on this thread's
         # current stream; a reader on another stream waits for this
         self._plan_ready = _record_event(self.device)
@@ -890,14 +920,125 @@ class FilterEngine(abc.ABC):
                 "n_queries": _round_up(max(q, 1), query_bucket)}
 
     def plan_part(self, nfa: NFA, pads: Mapping[str, int]) -> FilterPlan:
-        """Compile one partition's NFA at the shared pad targets.
+        """Compile one partition's NFA at the shared pad targets, through
+        the persistent plan cache when one is configured
+        (:meth:`_plan_cached`).
 
         Every part compile of :class:`ShardedPlan` goes through this
         method, so a caller may wrap it on the instance (the chaos
-        harness forces a ``PadOverflow`` here).  The port compiles
-        directly; a persistent plan cache is ROADMAP queue 1 item 10.
+        harness forces a ``PadOverflow`` here).
         """
-        return self._plan_part_uncached(nfa, pads)
+        return self._plan_cached(nfa, pads)
+
+    # ------------------------------------------------ persistent plan cache
+    def kernel_config(self, n_states: int, n_tags: int) -> dict | None:
+        """The launch shape a plan of ``n_states`` (padded) states over
+        ``n_tags`` tags compiles in; ``None`` for engines without one.
+        The streaming engine overrides it."""
+        return None
+
+    def _plan_shape(self, nfa: NFA, pads: Mapping[str, int] | None
+                    ) -> tuple[int, int]:
+        """(padded states, tags) of the plan that ``nfa`` at ``pads``
+        compiles to: what :meth:`kernel_config` is asked for."""
+        if pads:
+            return (int(pads.get("n_states", nfa.n_states)),
+                    max(int(nfa.n_tags), int(pads.get("n_tags", 0))))
+        s = int(nfa.n_states)
+        return s + -s % int(self.state_multiple), int(nfa.n_tags)
+
+    def plan_cache_key(self, nfa: NFA,
+                       pads: Mapping[str, int] | None = None) -> str:
+        """Content hash of one compiled plan's inputs.
+
+        It hashes :data:`PLAN_CACHE_VERSION`, the engine name, the device
+        type, ``state_multiple``, the engine's ``max_depth`` (where it has
+        one), the sorted options, the effective :meth:`kernel_config`, the
+        pads and the NFA (its tables, tag and query counts, sharing and
+        the canonical text of its queries).  Every input that can change
+        the tables changes the key, so a stale hit cannot happen; the
+        JAX package's Pallas switches (interpret mode, its budget
+        variables) mean nothing here and are not hashed.
+        """
+        cfg = self.kernel_config(*self._plan_shape(nfa, pads))
+        h = hashlib.sha256()
+        for part in (
+                PLAN_CACHE_VERSION, self.name, self.device.type,
+                str(self.state_multiple),
+                repr(getattr(self, "max_depth", None)),
+                repr(sorted((k, repr(v)) for k, v in self.options.items())),
+                repr(None if cfg is None else sorted(cfg.items())),
+                repr(sorted((pads or {}).items())),
+                str(int(nfa.n_tags)), str(int(nfa.n_queries)),
+                "shared" if nfa.shared else "unshared",
+                repr(tuple(str(q) for q in nfa.queries))):
+            h.update(part.encode())
+            h.update(b"\x00")
+        for arr in nfa.tables:
+            a = np.ascontiguousarray(arr)
+            h.update(str(a.dtype).encode())
+            h.update(str(a.shape).encode())
+            h.update(a.tobytes())
+        return h.hexdigest()[:40]
+
+    def _plan_from_tables(self, tables: Mapping[str, np.ndarray],
+                          meta: Mapping[str, Any]) -> FilterPlan:
+        """A cached entry's numpy tables → this engine's plan on its
+        device, through the table checks of :mod:`repro_torch.convert`
+        (raising ``ValueError`` on tables that fail them).  Each device
+        engine family overrides it."""
+        raise ValueError(f"{self.name}: no cached plan form")
+
+    def _plan_hit(self, tables: dict[str, np.ndarray], manifest: dict
+                  ) -> FilterPlan:
+        """What :meth:`PlanCache.load` calls on a hit: refuse an entry of
+        another engine, or whose tables do not hash to the digest written
+        with them, then rebuild the plan through the table checks."""
+        if manifest.get("engine") != self.name:
+            raise ValueError(f"a {manifest.get('engine')!r} entry")
+        if manifest.get("digest") != _tables_digest(tables):
+            raise ValueError("tables do not match their digest")
+        plan = self._plan_from_tables(tables, manifest.get("meta", {}))
+        if plan.meta != manifest.get("meta"):
+            raise ValueError("the rebuilt plan's metadata differs")
+        return plan
+
+    def _plan_cached(self, nfa: NFA,
+                     pads: Mapping[str, int] | None = None) -> FilterPlan:
+        """Compile ``nfa`` (at ``pads``, a sharded part), through the
+        persistent plan cache when one is configured.
+
+        Only device engines cache (host plans hold Python structures, and
+        there is no compile to skip).  A hit rebuilds the plan from the
+        stored tables with no :meth:`plan` call, through
+        :meth:`_plan_from_tables`' checks, so no kernel reads a table
+        that was not checked; an entry that fails them counts as a miss,
+        is recompiled and overwritten.  A miss compiles and writes the
+        entry through the crash-safe ``PlanCache.put``; a plan whose
+        metadata does not survive a JSON round trip exactly is not
+        cached.  The tables land on the calling thread's current stream,
+        which the engine's and the sharded plan's ready events follow.
+        """
+        cache = self.plan_cache
+        if cache is None or not self.device_sharded:
+            return (self._plan_part_uncached(nfa, pads)
+                    if pads is not None else self.plan(nfa))
+        key = self.plan_cache_key(nfa, pads)
+        plan = cache.load(key, self._plan_hit)
+        if plan is not None:
+            return plan
+        plan = (self._plan_part_uncached(nfa, pads)
+                if pads is not None else self.plan(nfa))
+        meta = plan.meta
+        try:
+            exact = json.loads(json.dumps(meta)) == meta
+        except (TypeError, ValueError):
+            exact = False
+        if exact:
+            tables = {k: v.cpu().numpy() for k, v in plan.tables.items()}
+            cache.put(key, tables, {"engine": plan.engine, "meta": meta,
+                                    "digest": _tables_digest(tables)})
+        return plan
 
     def _plan_part_uncached(self, nfa: NFA,
                             pads: Mapping[str, int]) -> FilterPlan:
@@ -1090,18 +1231,27 @@ class FilterEngine(abc.ABC):
 
     # ---------------------------------------------- kernel autotune hook
     @staticmethod
-    def autotune_blocks(n_states: int, max_depth: int, *,
-                        n_tags: int) -> dict:
-        """Pick the state-block size ``blk`` from static bounds.
+    def autotune_blocks(n_states: int, max_depth: int, *, n_tags: int,
+                        vmem_budget: int | None = None,
+                        smem_budget: int | None = None,
+                        chunk: int = 256) -> dict:
+        """Pick a (``blk``, ``chunk``) launch shape from static bounds.
 
-        The JAX package's static policy at its default budget, copied so
-        that a plan's default block layout equals the reference's:
-        ``blk`` is the largest power-of-two candidate whose per-block
-        footprint — packed-word stack, per-tag word masks, parent gather
-        lanes — fits the TPU's 4 MiB VMEM budget, clamped to the padded
-        state count.  A policy sized for the H100's shared memory is
+        The JAX package's static policy, copied so that a plan's block
+        layout at a given budget equals the reference's: ``blk`` is the
+        largest power-of-two candidate whose per-block footprint —
+        packed-word stack, per-tag word masks, parent gather lanes — fits
+        ``vmem_budget`` (default the TPU's 4 MiB, :data:`_TPU_VMEM_BUDGET`),
+        clamped to the padded state count; ``chunk`` (events per chunk) is
+        clamped to half of ``smem_budget`` (default 8 KiB) in int32.  The
+        JAX package's ``REPRO_PALLAS_*_BUDGET`` variables name Pallas and
+        are not read.  A policy sized for the H100's shared memory is
         ROADMAP queue 1 item 11.
         """
+        if vmem_budget is None:
+            vmem_budget = _TPU_VMEM_BUDGET
+        if smem_budget is None:
+            smem_budget = _TPU_SMEM_BUDGET
         blk = 32
         for cand in (1024, 512, 256, 128, 64, 32):
             wb = cand // 32
@@ -1109,10 +1259,12 @@ class FilterEngine(abc.ABC):
                         + (n_tags + 1) * wb     # per-tag word masks
                         + 2 * 32 * wb           # parent word/bit lanes
                         + 4 * wb)               # state/work rows
-            if need <= _TPU_VMEM_BUDGET:
+            if need <= vmem_budget:
                 blk = cand
                 break
-        return {"blk": min(blk, _round_up(max(n_states, 1), 32))}
+        blk = min(blk, _round_up(max(n_states, 1), 32))
+        chunk = max(32, min(int(chunk), smem_budget // (2 * 4)))
+        return {"blk": blk, "chunk": chunk}
 
 
 # -------------------------------------------------------------- the registry

@@ -423,6 +423,13 @@ class _LevelEngine(base.FilterEngine):
     def plan(self, nfa: NFA) -> base.FilterPlan:
         return _level_plan(self.name, nfa, self.state_multiple, self.device)
 
+    def _plan_from_tables(self, tables, meta) -> base.FilterPlan:
+        """A cached plan, rebuilt through :func:`repro_torch.convert.
+        level_plan_from_numpy` (shapes, state indices in [0, S))."""
+        from ...convert import level_plan_from_numpy  # imports this package
+
+        return level_plan_from_numpy(self.name, tables, meta, self.device)
+
     def part_pads(self, parts, *, query_bucket: int = 8):
         """Uniform pads, the tag space included: REQ is (T, S), so the
         parts stack only at one T, bucketed to 16 so that churn bringing

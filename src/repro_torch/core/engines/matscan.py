@@ -160,11 +160,20 @@ class MatscanEngine(base.FilterEngine):
         return {"kmax": base._round_up(kmax, 4),
                 "n_queries": base._round_up(max(nq, 1), query_bucket)}
 
-    def plan_part(self, nfa: NFA, pads) -> base.FilterPlan:
+    def _plan_part_uncached(self, nfa: NFA, pads) -> base.FilterPlan:
+        """A part's compile at the uniform ``(n_queries, kmax)`` pads;
+        :meth:`plan_part` routes it through the plan cache."""
         if not pads:
             return self.plan(nfa)
         return self._build_plan(nfa, kmax=pads["kmax"],
                                 n_queries=pads["n_queries"])
+
+    def _plan_from_tables(self, tables, meta) -> base.FilterPlan:
+        """A cached plan, rebuilt through :func:`repro_torch.convert.
+        matscan_plan_from_numpy` (shapes, accept indices in [0, kmax])."""
+        from ...convert import matscan_plan_from_numpy  # imports this package
+
+        return matscan_plan_from_numpy(tables, meta, self.device)
 
     def _run_parts(self, sharded: base.ShardedPlan, prep: tuple
                    ) -> tuple[torch.Tensor, torch.Tensor]:

@@ -40,8 +40,11 @@ from ..nfa import NFA, pad_states
 from . import base
 from .result import NO_MATCH, FilterResult, SparseResult
 
-#: the segment packer's capacity target, as the JAX package sets it
+#: the segment packer's capacity target, and the TPU kernel's bytes per
+#: DMA chunk, as the JAX package sets them (no CUDA kernel reads the
+#: chunk; it is kept in the plan's metadata so the options match)
 DEFAULT_SEGMENT_TARGET = 4096
+DEFAULT_BYTE_CHUNK = 512
 
 #: the JAX package's choice between the fused sparse epilogue and lane
 #: compaction, kept as it is so both packages take the same path for
@@ -57,9 +60,15 @@ SPARSE_EPILOGUE_MODES = ("auto", "on", "off")
 #: TPU grid iteration orders; accepted so the option matches, ignored here
 GRID_ORDERS = ("bg", "gb")
 
-#: launch-shape options; ``grid_order`` orders the TPU's sequential grid
-#: and is kept in the plan's metadata only, the CUDA grid has no order
-TUNABLE_KEYS = ("blk", "grid_order", "segment_target", "ep_tile")
+#: launch-shape options, the JAX package's; ``chunk`` (events per SMEM
+#: chunk), ``byte_chunk`` (bytes per DMA chunk) and ``grid_order`` (the
+#: TPU's sequential grid order) are kept in the plan's metadata and its
+#: cache key only: no CUDA kernel reads them
+TUNABLE_KEYS = ("blk", "chunk", "byte_chunk", "grid_order",
+                "segment_target", "ep_tile")
+
+#: options of the static policy and the measured overlay
+POLICY_KEYS = ("vmem_budget", "smem_budget", "autotune")
 
 #: options read at call time
 CALL_KEYS = ("pack", "fuse", "event_bucket", "match_cap", "sparse_epilogue")
@@ -110,9 +119,17 @@ class StreamingEngine(base.FilterEngine):
 
     Engine options (the JAX engine's, where ported):
 
-    * ``blk=`` / ``grid_order=`` / ``segment_target=`` — launch shape;
-      defaults follow the JAX package's static policy so the layouts
-      are equal.
+    * ``blk=`` / ``chunk=`` / ``byte_chunk=`` / ``grid_order=`` /
+      ``segment_target=`` — launch shape; defaults follow the JAX
+      package's static policy so the layouts are equal (``chunk``,
+      ``byte_chunk`` and ``grid_order`` are TPU knobs, kept in the plan's
+      metadata only).
+    * ``vmem_budget=`` / ``smem_budget=`` — the static policy's budgets
+      (bytes), as in the JAX package; ``autotune="measured"`` — overlay
+      the winner that :func:`repro_torch.kernels.autotune.search` measured
+      for this plan shape on this device.
+    * ``plan_cache=`` — a :class:`~repro_torch.checkpoint.PlanCache` or a
+      directory: plans are compiled once and read back on later builds.
     * ``pack=`` — segment-pack byte batches by default in
       :meth:`filter_bytes`.
     * ``fuse=`` — ``True`` (default): bytes run the one-launch kernel;
@@ -134,23 +151,44 @@ class StreamingEngine(base.FilterEngine):
                  device: str | torch.device = "cuda", **options) -> None:
         self.max_depth = int(max_depth)
         self._layout_cache: dict = {}
-        known = set(TUNABLE_KEYS) | set(CALL_KEYS) | {"minimize"}
+        known = (set(TUNABLE_KEYS) | set(CALL_KEYS) | set(POLICY_KEYS)
+                 | {"minimize", "plan_cache"})
         unknown = sorted(set(options) - known - set(base.NOT_PORTED))
         if unknown:
             raise TypeError(f"unknown streaming engine options {unknown}")
         super().__init__(nfa, dictionary, device=device, **options)
 
     def kernel_config(self, n_states: int, n_tags: int) -> dict:
-        """Launch shape: the static policy, then explicit options."""
-        cfg = self.autotune_blocks(n_states, self.max_depth, n_tags=n_tags)
-        cfg.update(grid_order="bg", segment_target=DEFAULT_SEGMENT_TARGET,
+        """Launch shape: the static policy (at the ``vmem_budget=`` /
+        ``smem_budget=`` options), then, with ``autotune="measured"``, the
+        winner cached for this plan shape on this device, then explicit
+        options, in increasing precedence (the JAX package's order; an
+        ``autotune=`` value other than ``"measured"`` changes nothing, as
+        there)."""
+        vb, sb = (self.options.get(k) for k in ("vmem_budget", "smem_budget"))
+        cfg = self.autotune_blocks(
+            n_states, self.max_depth, n_tags=n_tags,
+            vmem_budget=None if vb is None else int(vb),
+            smem_budget=None if sb is None else int(sb))
+        cfg.update(byte_chunk=DEFAULT_BYTE_CHUNK, grid_order="bg",
+                   segment_target=DEFAULT_SEGMENT_TARGET,
                    ep_tile=DEFAULT_EP_TILE)
+        if self.options.get("autotune") == "measured":
+            from ...kernels import autotune as autotune_mod
+
+            hit = autotune_mod.cached_config(autotune_mod.plan_key(
+                autotune_mod.backend(self.device), n_states, n_tags,
+                self.max_depth, self.state_multiple))
+            if hit:
+                cfg.update({k: hit[k] for k in TUNABLE_KEYS if k in hit})
         cfg.update({k: self.options[k] for k in TUNABLE_KEYS
                     if k in self.options})
         if cfg["grid_order"] not in GRID_ORDERS:
             raise ValueError(f"grid_order={cfg['grid_order']!r} is not one "
                              f"of {GRID_ORDERS}")
-        return {"blk": int(cfg["blk"]), "grid_order": cfg["grid_order"],
+        return {"blk": int(cfg["blk"]), "chunk": max(32, int(cfg["chunk"])),
+                "byte_chunk": max(32, int(cfg["byte_chunk"])),
+                "grid_order": cfg["grid_order"],
                 "segment_target": max(1, int(cfg["segment_target"])),
                 "ep_tile": max(1, int(cfg["ep_tile"]))}
 
@@ -176,6 +214,13 @@ class StreamingEngine(base.FilterEngine):
         meta = dict(cfg, n_states=nfa.n_states, max_depth=self.max_depth,
                     state_multiple=self.state_multiple, blk=mk.blk,
                     n_blocks=mk.n_blocks, block_queries=mk.block_queries)
+        return plan_from_numpy(tables, meta, self.device)
+
+    def _plan_from_tables(self, tables, meta) -> base.FilterPlan:
+        """A cached plan, rebuilt through :func:`repro_torch.convert.
+        plan_from_numpy` (shapes, in-block indices, lane grid)."""
+        from ...convert import plan_from_numpy  # convert imports this package
+
         return plan_from_numpy(tables, meta, self.device)
 
     # ------------------------------------------------------- sharded hooks

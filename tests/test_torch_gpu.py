@@ -16,7 +16,10 @@ the synchronous route, and a hot swap with batches in flight against the
 live set of each batch's epoch.  Query-sharded plans: K1-K4 over the
 folded P·G blocks with tombstoned columns, K6 over the parts folded into
 its state axis (past shared memory too), and a sharded subscribe made on
-one stream while a batch of the old plan runs on another.  The file
+one stream while a batch of the old plan runs on another.  The plan
+cache: a hit's tables on the card equal a compile's, and a hot swap whose
+rebuild reads the cache runs with batches in flight.  The public wrappers
+of ``kernels.ops`` and a tiny ``autotune.search`` on the card.  The file
 imports nothing of JAX, so it runs where only the port is installed.
 """
 import threading
@@ -796,3 +799,137 @@ def test_sharded_subscribe_on_another_stream_leaves_inflight_batch(cuda):
     want_new = cpu._filter_bytebatch(raw, record=False)
     np.testing.assert_array_equal(got_new.matched, want_new.matched)
     np.testing.assert_array_equal(got_new.first_event, want_new.first_event)
+
+
+# ------------------------------------------- plan cache, ops and autotune
+@pytest.mark.parametrize("query_shards", [1, 2])
+def test_plan_cache_hit_swap_with_batches_in_flight(cuda, tmp_path,
+                                                    query_shards):
+    """The hot swap with batches in flight, its shadow rebuild read from a
+    warm plan cache: the hit's tables are placed on the shadow build's
+    stream while batches of the old epoch run on the workers' streams,
+    and every request routes as a synchronous stage on its epoch's live
+    set (the helper's checks)."""
+    from repro_torch.checkpoint import PlanCache
+    from repro_torch.data.filter_stage import FilterStage
+
+    _, d, qs, raw = serve_workload(n_docs=16, seed=2)
+    kw = {"query_shards": query_shards} if query_shards > 1 else {}
+
+    def stage(cache):
+        return FilterStage(qs, d, n_shards=2, keep_unmatched=True,
+                           batch_size=4, device=str(cuda),
+                           engine_options={"plan_cache": cache}, **kw)
+
+    before = stage_routes(stage(None), raw)
+    hits = np.bincount(np.concatenate(
+        [np.asarray(m, np.int64) for m in before.values()]), minlength=16)
+    stage(str(tmp_path)).subscribe(qs[int(np.argmax(hits))])   # warm
+    cache = PlanCache(str(tmp_path))
+    assert swap_with_batches_in_flight(
+        str(cuda), engine_options={"plan_cache": cache}, **kw) == [0, 0, 0, 1]
+    assert cache.misses == 0 and cache.hits >= 2
+
+
+def test_plan_cache_hit_on_card_equals_compile(cuda, tmp_path):
+    """A hit's tables on the card equal the compiled ones, and K2 on them
+    gives the plain version's lanes."""
+    from repro_torch.checkpoint import PlanCache
+
+    dtd, d, nfa = workload(200, seed=6)
+    a = engines.create("streaming", nfa, dictionary=d, device=cuda,
+                       plan_cache=str(tmp_path))
+    cache = PlanCache(str(tmp_path))
+    b = engines.create("streaming", nfa, dictionary=d, device=cuda,
+                       plan_cache=cache)
+    assert (cache.hits, cache.misses) == (1, 0)
+    for k in a.plan_.tables:
+        assert a.plan_[k].device.type == "cuda"
+        assert torch.equal(a.plan_[k], b.plan_[k]), k
+    bb = ByteBatch.from_buffers(
+        [encode_bytes(x, text_fill=4) for x in
+         gen_corpus(dtd, n_docs=4, nodes_per_doc=120, seed=6)], bucket=256)
+    cpu = engines.create("streaming", nfa, dictionary=d, device="cpu")
+    got, want = b.filter_bytes(bb), cpu.filter_bytes(bb)
+    np.testing.assert_array_equal(got.matched, want.matched)
+    np.testing.assert_array_equal(got.first_event, want.first_event)
+
+
+def test_ops_on_card_equal_cpu(cuda):
+    """Each public wrapper on the card launches its kernel once and equals
+    the same wrapper on the CPU."""
+    from repro_torch.core.nfa import pad_states
+    from repro_torch.kernels import nfa_transition as nt
+    from repro_torch.kernels import ops
+
+    dtd, d, nfa = workload(120, seed=7)
+    docs = gen_corpus(dtd, n_docs=4, nodes_per_doc=150, seed=7)
+    bufs = [encode_bytes(x, text_fill=3) for x in docs]
+    data = ByteBatch.from_buffers(bufs, bucket=256).data
+    before = pd.predecode.launches
+    k = ops.predecode(data, device=cuda)
+    assert pd.predecode.launches == before + 1
+    p = ops.predecode(data, device="cpu")
+    assert all(torch.equal(x.cpu(), y) for x, y in zip(k, p))
+    ev, ev_cpu = (ops.decode_document(bufs[0], d, device=dev)
+                  for dev in (cuda, "cpu"))
+    np.testing.assert_array_equal(ev.kind, ev_cpu.kind)
+    np.testing.assert_array_equal(ev.tag_id, ev_cpu.tag_id)
+    padded = pad_states(nfa, 128)
+    s = padded.n_states
+    g = torch.Generator().manual_seed(7)
+    rows = (torch.rand((333, s), generator=g) < 0.1).float().numpy()
+    tags = torch.randint(-1, nfa.n_tags + 2, (333,), generator=g,
+                         dtype=torch.int32).numpy()
+    args = (rows, tags, padded.req_matrix(), padded.wild_vector(),
+            padded.parent_onehot(), padded.tables.selfloop.astype(np.float32))
+    before = nt.nfa_transition.launches
+    k6 = ops.nfa_transition(*args, device=cuda)
+    assert nt.nfa_transition.launches == before + 1
+    assert torch.equal(k6.cpu(), ops.nfa_transition(*args, device="cpu"))
+    qs = list(nfa.queries)
+    before = sf.stream_filter.launches
+    eng, eng_cpu = (ops.StreamFilterKernelEngine(qs, d, device=dev)
+                    for dev in (cuda, "cpu"))
+    for x in docs:
+        got, want = eng.filter_document(x), eng_cpu.filter_document(x)
+        np.testing.assert_array_equal(got.matched, want.matched)
+        np.testing.assert_array_equal(got.first_event, want.first_event)
+    assert sf.stream_filter.launches == before + len(docs)
+
+
+def test_autotune_search_on_card_tiny_grid(cuda, tmp_path):
+    """A search on the card times each distinct shape, caches the winner
+    under the card's name, and an ``autotune="measured"`` engine reads it
+    and filters as the default engine."""
+    import os
+
+    from repro_torch.kernels import autotune
+
+    dtd, d, nfa = workload(200, seed=8)
+    bb = ByteBatch.from_buffers(
+        [encode_bytes(x, text_fill=4) for x in
+         gen_corpus(dtd, n_docs=6, nodes_per_doc=100, seed=8)], bucket=256)
+    cache = str(tmp_path / "at.json")
+    best, rows = autotune.search(nfa, d, bb, blks=(32, 64, 8192),
+                                 segment_targets=(512,), trials=1,
+                                 device=cuda, cache_file=cache)
+    assert all("seconds" in r for r in rows) and best["seconds"] > 0
+    key = next(iter(autotune.load_cache(cache)))
+    assert key.startswith(
+        f"torch-v1:cuda:{torch.cuda.get_device_name(cuda)}:")
+    old = os.environ.get(autotune.CACHE_ENV)
+    os.environ[autotune.CACHE_ENV] = cache
+    try:
+        eng = engines.create("streaming", nfa, dictionary=d, device=cuda,
+                             autotune="measured")
+    finally:
+        if old is None:
+            del os.environ[autotune.CACHE_ENV]
+        else:
+            os.environ[autotune.CACHE_ENV] = old
+    assert eng.plan_.meta["blk"] == best["blk_eff"]
+    plain = engines.create("streaming", nfa, dictionary=d, device=cuda)
+    got, want = eng.filter_bytes(bb, pack=True), plain.filter_bytes(bb)
+    np.testing.assert_array_equal(got.matched, want.matched)
+    np.testing.assert_array_equal(got.first_event, want.first_event)

@@ -342,11 +342,12 @@ class TestEngines:
             port.filter_bytes(port_bytes(bb))
         assert got.value.doc_indices == want.value.doc_indices == (1,)
 
-    def test_options_reach_the_engines(self):
-        """``event_bucket`` (what the stage passes) and ``minimize`` are
-        taken, not refused; unported options are refused as on every
-        engine."""
+    def test_options_reach_the_engines(self, tmp_path):
+        """``event_bucket`` (what the stage passes), ``minimize`` and
+        ``plan_cache`` are taken, not refused; a plan read back from the
+        cache filters as the compiled one."""
         dtd, d, qs, nfa, docs = level_workload(seed=11, n_docs=2)
+        batch = port_batch(EventBatch.from_streams(docs))
         for name in ("levelwise", "wavefront"):
             eng = engines.create(name, nfa, dictionary=d, device="cpu",
                                  event_bucket=64)
@@ -354,9 +355,14 @@ class TestEngines:
             eng = engines.create(name, nfa, dictionary=d, device="cpu",
                                  minimize=True)
             assert eng.minimize_stats is not None
-            with pytest.raises(NotImplementedError, match="plan_cache"):
-                engines.create(name, nfa, dictionary=d, device="cpu",
-                               plan_cache="cache")
+            want = engines.create(name, nfa, dictionary=d,
+                                  device="cpu").filter_batch(batch)
+            for hits in (0, 1):
+                eng = engines.create(name, nfa, dictionary=d, device="cpu",
+                                     plan_cache=str(tmp_path / name))
+                assert (eng.plan_cache.hits, eng.plan_cache.misses) \
+                    == (hits, 1 - hits)
+                assert_same(want, eng.filter_batch(batch))
         eng = engines.create("wavefront", nfa, dictionary=d, device="cpu")
         assert (eng.chunk, eng.use_kernel, eng.device.type) \
             == (128, False, "cpu")

@@ -103,19 +103,41 @@ class TestEngineAgainstScan:
 
 class TestEngineOptions:
     @pytest.mark.parametrize("opts,exc", [
-        ({"plan_cache": object()}, NotImplementedError),
-        ({"smem_budget": 1 << 10}, NotImplementedError),
-        ({"vmem_budget": 1 << 20}, NotImplementedError),
-        ({"autotune": "measured"}, NotImplementedError),
+        ({"plan_cache": "plans"}, None),
+        ({"smem_budget": 1 << 10}, None),
+        ({"vmem_budget": 1 << 20}, None),
+        ({"autotune": "measured"}, None),
         ({"kernel": "scan"}, NotImplementedError),
         ({"grid_order": "xy"}, ValueError),
         ({"no_such_option": 1}, TypeError),
     ])
-    def test_unported_and_unknown_options_raise(self, opts, exc):
-        dtd, d, qs, nfa = workload(n_queries=4, seed=2)
-        with pytest.raises(exc):
-            engines.create("streaming", nfa, dictionary=d, device="cpu",
-                           **opts)
+    def test_unported_and_unknown_options_raise(self, opts, exc, tmp_path,
+                                                monkeypatch):
+        """Options with no counterpart in the port (``kernel=``), bad
+        values and unknown names raise; the plan cache, the budgets and
+        the measured overlay (``exc`` None) are taken and route as the
+        engine without them."""
+        dtd, d, qs, nfa = workload(n_queries=24, seed=2)
+        if exc is not None:
+            with pytest.raises(exc):
+                engines.create("streaming", nfa, dictionary=d, device="cpu",
+                               **opts)
+            return
+        from repro_torch.kernels import autotune
+
+        monkeypatch.setenv(autotune.CACHE_ENV, str(tmp_path / "at.json"))
+        if "plan_cache" in opts:
+            opts = {"plan_cache": str(tmp_path / opts["plan_cache"])}
+        bb = port_bytes(ragged_bb(dtd, d, 2))
+        want = engines.create("streaming", nfa, dictionary=d,
+                              device="cpu").filter_bytes(bb)
+        assert want.matched.any()
+        for _ in range(2):      # with the plan cache: a miss, then a hit
+            eng = engines.create("streaming", nfa, dictionary=d,
+                                 device="cpu", **opts)
+            assert_same(want, eng.filter_bytes(bb))
+        if "plan_cache" in opts:
+            assert (eng.plan_cache.hits, eng.plan_cache.misses) == (1, 0)
 
     @pytest.mark.parametrize("opts", [{"fuse": False},
                                       {"sparse_epilogue": "on"},
