@@ -113,7 +113,24 @@ printed as it runs; any failure exits non-zero:
    ``launch.serve.build_stage`` twice on one plan cache,
    ``route_requests`` over events (K1) and bytes (K2) and
    ``serve_continuous`` on a replay trace (K2), all with equal queues;
-10. the end-to-end line, one ``{"kernels": [...]}`` line, the card line,
+10. the 2-D (data x model) mesh: (a) ``make_filter_mesh(4,
+   data_shards=2)``'s placed shape (1 x 1 on one card) and the stage
+   built on it (K2 once a position); (b) an explicit 2 x 2
+   ``FilterMesh`` over the one card, each position on a stream of its
+   own: ``route_bytes`` over phase 3's requests (K2 four times a
+   request, timed on the host and per position with CUDA events) and
+   ``route`` (K1), phase 4's messages through the sparse events route
+   (K4) and the sparse bytes route (K2, sparsified), ``mesh=`` on
+   ``filter_bytes_sharded_sparse`` (K3 at the 2 model positions), and the
+   levelwise engine with K6 at 2 parts over one 1 MB request (K5 once a
+   position, K6 once a level of each position's slice), every route
+   equal to the unsharded stage's; (c) ``route_bytes_pipelined`` at
+   depths 1 and 3, equal to ``route_bytes``, with ``overlapped_batches``;
+   (d) a ``ServeLoop`` over the 2-D sparse stage on the first 2,048
+   requests of phase 7(c)'s churn trace (phase 7(a)'s messages and
+   rate), one subscribe and one unsubscribe, each request routed as
+   phase 7(c)'s synchronous stage on its epoch's live set;
+11. the end-to-end line, one ``{"kernels": [...]}`` line, the card line,
    and the result line.
 """
 from __future__ import annotations
@@ -185,6 +202,17 @@ N_TWIGS, TWIG_ORACLE_DOCS = 1024, 8
 # reported by its median: single builds on the shared host spread by 2x
 CACHE_REPEATS = 3
 CLI_REPLICAS, CLI_REQUESTS = 2, 8
+
+# phase 10, the 2-D mesh: the mesh make_filter_mesh places on this host,
+# then an explicit 2 x 2 grid of positions on the one card, its stages at
+# 2 query parts (one a model position); the pipelined route at depths 1
+# and 3; the serve loop on the first 2,048 requests of phase 7(c)'s churn
+# trace (phase 7(a)'s messages and rate) with its subscribe and
+# unsubscribe: twice (a)'s length, so both shadow builds commit inside it
+# and the loop serves it in a few seconds
+MESH_DATA, MESH_MODEL = 2, 2
+MESH_DEPTHS = (1, 3)
+MESH_SERVE_REQUESTS = 2048
 
 # card peaks (H100 SXM data sheet): HBM bytes/s, the 32-bit non-tensor
 # rate, which bounds the kernels' integer bit operations and K6's float32
@@ -1400,6 +1428,7 @@ def serve_phase(dtd, d, qs, run, short, dev) -> dict:
         per_epoch[t.epoch] += 1
     check(all(per_epoch.values()), f"(c) an epoch served no request: "
                                    f"{per_epoch}")
+    out.update(expect=expect, new_q=new_q)
     out["churn"].update(per_epoch=per_epoch,
                         swaps=[{"op": r.op, "build_s": r.build_s,
                                 "commit_ms": r.commit_s * 1e3}
@@ -2078,6 +2107,248 @@ def api_phase(dtd, d, qs, bufs, run, short, level_ref, layout, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 10
+def position_ms(log: LaunchLog) -> list[float]:
+    """Mean kernel ms of each stream's launches in a log: one stream a
+    mesh position, in the order the streams first launched."""
+    torch.cuda.synchronize()
+    per: dict[int, list[float]] = {}
+    for stream, start, stop in log.rows:
+        per.setdefault(stream, []).append(start.elapsed_time(stop))
+    return [sum(v) / len(v) for v in per.values()]
+
+
+def mesh_phase(dtd, d, qs, bufs, run, short, level_ref, serving, sharded,
+               dev) -> dict:
+    """Phase 10: the 2-D (data x model) mesh on the card, one launch per
+    position; every route against the unsharded stage's."""
+    from repro_torch.core.events import ByteBatch
+    from repro_torch.data.filter_stage import FilterStage
+    from repro_torch.launch.mesh import FilterMesh, make_filter_mesh
+    from repro_torch.serve import ServeLoop, poisson_arrivals
+
+    grid = MESH_DATA * MESH_MODEL
+    say(f"phase 10: the 2-D (data x model) mesh, {MESH_DATA} x {MESH_MODEL} "
+        f"positions on one card")
+    out = {"positions": grid, "launches": {}}
+
+    def stage(profiles=qs, **kw):
+        kw.setdefault("engine", "streaming")
+        return FilterStage(profiles=profiles, dictionary=d,
+                           batch_size=BATCH, device=str(dev), **kw)
+
+    # (a) the mesh make_filter_mesh places on this host, and its stage
+    placed = make_filter_mesh(SHARD_PARTS, data_shards=MESH_DATA)
+    st = stage(query_shards=SHARD_PARTS, data_shards=MESH_DATA)
+    out["placed"] = placed.shape
+    check(st.mesh.shape == placed.shape and st.mesh.devices == placed.devices,
+          f"(a) the stage placed {st.mesh.shape}, make_filter_mesh "
+          f"{placed.shape}")
+    got, _ = drive_once(
+        f"(a) FilterStage(query_shards={SHARD_PARTS}, data_shards="
+        f"{MESH_DATA}) on the placed mesh, 1 request",
+        lambda: routed(st.route_bytes(run["payloads"][:BATCH])),
+        {"K2": placed.size})
+    check(got == [r for r in run["routes"] if r[0] < BATCH],
+          "(a) the placed 2-D stage routes differently from phase 3")
+    say(f"(a) make_filter_mesh({SHARD_PARTS}, data_shards={MESH_DATA}) "
+        f"placed {placed.shape} on {torch.cuda.device_count()} card(s); its "
+        f"stage routes phase 3's first request as phase 3")
+    del st
+
+    # (b) an explicit 2 x 2 grid of positions on the one card
+    mesh = FilterMesh([[dev] * MESH_MODEL for _ in range(MESH_DATA)])
+    dense = stage(query_shards=MESH_MODEL, data_shards=MESH_DATA, mesh=mesh)
+    list(dense.route_bytes(run["payloads"][:BATCH]))     # warm-up request
+    torch.cuda.synchronize()
+
+    def k2_route():
+        with LaunchLog("stream_filter_bytes") as log:
+            t = time.perf_counter()
+            got = routed(dense.route_bytes(run["payloads"]))
+            wall = time.perf_counter() - t
+        return got, wall, log
+
+    (got, wall, log), launches = drive_once(
+        "(b) 2-D route_bytes, dense 1 MB", k2_route,
+        {"K2": grid * REQUESTS})
+    check(got == run["routes"], "(b) the 2-D dense route differs from "
+                                "phase 3's")
+    summary = log.summary()
+    per_pos = position_ms(log)
+    check(summary["streams"] == grid and not summary["on_default_stream"],
+          f"(b) K2 launched on {summary['streams']} stream(s), default "
+          f"{summary['on_default_stream']}; expected one a position")
+    out.update(request_ms=wall / REQUESTS * 1e3, position_ms=per_pos,
+               k2_busy_ms=summary["busy_ms"] / REQUESTS,
+               k2_overlapped=summary["overlapped"])
+    out["launches"]["K2"] = launches["K2"]
+    phase3_ms = run["e2e_s"] / REQUESTS * 1e3
+    say(f"(b) {REQUESTS} requests of {BATCH} 1 MB documents route as phase "
+        f"3: {out['request_ms']:.3f} ms a request (host clock) against "
+        f"phase 8(a)'s folded K2 {sharded['K2_ms']:.3f} ms "
+        f"({out['request_ms'] / sharded['K2_ms']:.3f} x; predicted 1.0-1.4 "
+        f"x) and phase 3's {phase3_ms:.3f} ms; K2 per position "
+        f"{', '.join(f'{x:.3f}' for x in per_pos)} ms (CUDA events), card "
+        f"busy {out['k2_busy_ms']:.3f} ms a request, positions overlapped: "
+        f"{summary['overlapped']}")
+    got, launches = drive_once(
+        "(b) 2-D route, host-decoded events (K1)",
+        lambda: routed(dense.route(run["streams"])), {"K1": grid * REQUESTS})
+    check(got == run["routes"], "(b) the 2-D events route differs from "
+                                "phase 3's")
+    out["launches"]["K1"] = launches["K1"]
+
+    # (c) the pipelined route at depths 1 and 3
+    out["pipelined"] = {}
+    for k in MESH_DEPTHS:
+        dense.stats.update(overlapped_batches=0, put_seconds=0.0)
+        t = time.perf_counter()
+        got, _ = drive_once(
+            f"(c) route_bytes_pipelined(depth={k})",
+            lambda: routed(dense.route_bytes_pipelined(run["payloads"],
+                                                       depth=k)),
+            {"K2": grid * REQUESTS})
+        wall = time.perf_counter() - t
+        ov = dense.stats["overlapped_batches"]
+        check(got == run["routes"], f"(c) depth {k} routes differently "
+                                    f"from route_bytes")
+        check(ov == (0 if k == 1 else REQUESTS - 1),
+              f"(c) depth {k} overlapped {ov} batches")
+        out["pipelined"][k] = {"docs_per_s": len(run["payloads"]) / wall,
+                               "overlapped_batches": ov,
+                               "put_ms": dense.stats["put_seconds"] * 1e3}
+        say(f"(c) depth {k}: routes as route_bytes, "
+            f"{out['pipelined'][k]['docs_per_s']:.1f} docs/s, "
+            f"overlapped_batches {ov}, put_seconds "
+            f"{out['pipelined'][k]['put_ms']:.3f} ms in all")
+    del dense
+    torch.cuda.empty_cache()
+
+    # (b) short messages: events through K4, sparse bytes (K2 at every
+    # position, sparsified), and mesh= on the 1-D sparse bytes filter (K3
+    # at every model position of the first data row)
+    sp = stage(query_shards=MESH_MODEL, data_shards=MESH_DATA, mesh=mesh,
+               sparse=True, engine_options={"match_cap": SPARSE_CAP})
+    got, launches = drive_once(
+        "(b) 2-D sparse route, short messages (K4)",
+        lambda: routed(sp.route(short["streams"])), {"K4": grid * REQUESTS})
+    check(got == short["routes"], "(b) the 2-D K4 route differs from "
+                                  "phase 4's")
+    out["launches"]["K4"] = launches["K4"]
+    got, _ = drive_once(
+        "(b) 2-D sparse route_bytes, short messages (K2, sparsified)",
+        lambda: routed(sp.route_bytes(short["payloads"])),
+        {"K2": grid * REQUESTS})
+    check(got == short["routes"], "(b) the 2-D sparse bytes route differs "
+                                  "from phase 4's")
+    check(sp.stats["paths"] == {"kernel-fused": REQUESTS,
+                                "dense-2d": REQUESTS},
+          f"(b) 2-D sparse paths {sp.stats['paths']}")
+
+    def k3_route():
+        routes = []
+        for i in range(REQUESTS):
+            bufs_i = short["payloads"][i * BATCH:(i + 1) * BATCH]
+            bb = ByteBatch.from_buffers(bufs_i, bucket=sp.byte_bucket)
+            res = sp._eng.filter_bytes_sharded_sparse(
+                bb, sp.sharded_, mesh=mesh, match_cap=SPARSE_CAP)
+            check(res.meta["path"] == "kernel-fused",
+                  f"(b) mesh= K3 took {res.meta}")
+            routes.append(sp._fan_out(res, [len(b) for b in bufs_i],
+                                      i * BATCH))
+        return routed(routes)
+
+    got, launches = drive_once(
+        "(b) filter_bytes_sharded_sparse(mesh=) (K3)", k3_route,
+        {"K3": MESH_MODEL * REQUESTS})
+    check(got == short["routes"], "(b) mesh= K3 differs from phase 4's")
+    out["launches"]["K3"] = launches["K3"]
+    say(f"(b) short messages: K4 at {grid} positions and the sparse bytes "
+        f"route route as phase 4; mesh= K3 at the {MESH_MODEL} model "
+        f"positions of the first data row (the 1-D path: the JAX package "
+        f"replicates it over data) routes as phase 4")
+
+    # (b) the levelwise engine with K6, 2 parts, one 1 MB request
+    lst = FilterStage(profiles=level_profiles(dtd), dictionary=d,
+                      engine="levelwise", batch_size=BATCH, device=str(dev),
+                      query_shards=MESH_MODEL, data_shards=MESH_DATA,
+                      mesh=mesh, engine_options={"use_kernel": True})
+    t = time.perf_counter()
+    got, launches = drive(
+        "(b) 2-D levelwise route_bytes use_kernel=True, 1 request",
+        lambda: routed(lst.route_bytes(request_payloads(bufs, 1))),
+        {"K5", "K6"})
+    out["level_s"] = time.perf_counter() - t
+    check(launches["K5"] == grid, f"(b) K5 launched {launches['K5']} times, "
+                                  f"not once a position")
+    check(launches["K6"] >= grid and launches["K6"] % MESH_MODEL == 0,
+          f"(b) K6 launched {launches['K6']} times")
+    check(got == level_ref["want_first"], "(b) the 2-D levelwise route "
+                                          "differs from the streaming stage")
+    out["launches"].update(K5=launches["K5"], K6=launches["K6"])
+    say(f"(b) levelwise with K6 at {LEVEL_PROFILES} profiles, one part a "
+        f"model position: K5 once a position, K6 once a level of each "
+        f"position's slice ({launches['K6']}), routes as the streaming stage "
+        f"in {out['level_s']:.3f} s")
+    del lst, sp
+    torch.cuda.empty_cache()
+
+    # (d) the serve loop over the 2-D sparse stage, with a subscribe and
+    # an unsubscribe: the head of phase 7(c)'s trace and its churn, each
+    # request held against phase 7(c)'s synchronous stage on its epoch's
+    # live set
+    msgs = short["payloads"]
+    expect, new_q = serving["expect"], serving["new_q"]
+    loop_stage = stage(query_shards=MESH_MODEL, data_shards=MESH_DATA,
+                       mesh=mesh, sparse=True,
+                       engine_options={"match_cap": SPARSE_CAP})
+    churn = [msgs[i % len(msgs)] for i in range(MESH_SERVE_REQUESTS)]
+    ops = {SUBSCRIBE_AT: lambda lp: lp.subscribe(new_q),
+           UNSUBSCRIBE_AT: lambda lp: lp.unsubscribe(0)}
+    arrivals = poisson_arrivals(SERVE_CHURN_REQUESTS, SERVE_RATE_HZ,
+                                seed=1)[:len(churn)]
+
+    def serve_d():
+        with LaunchLog("stream_filter_bytes") as log:
+            loop = ServeLoop(loop_stage, max_batch=BATCH,
+                             deadline_ms=SERVE_DEADLINE_MS, max_inflight=3,
+                             queue_cap=SERVE_QUEUE_CAP)
+            t = time.perf_counter()
+            with loop:
+                tickets, reconfig = churn_trace(loop, churn, arrivals, ops)
+            wall = time.perf_counter() - t
+        return loop, tickets, reconfig, wall, log.summary()
+
+    (loop, tickets, reconfig, wall, log), _ = drive(
+        f"(d) serve loop over the 2-D stage with churn, {len(churn)} "
+        f"requests", serve_d, {"K2"})
+    out["serve"] = serve_summary("(d) 2-D sparse pub-sub with churn", loop,
+                                 wall, log, tickets, arrivals)
+    check([(r.op, r.error, r.gid) for r in reconfig]
+          == [("subscribe", None, N_PROFILES), ("unsubscribe", None, 0)],
+          f"(d) reconfigurations ended "
+          f"{[(r.op, r.error, r.gid) for r in reconfig]}")
+    per_epoch = {0: 0, 1: 0, 2: 0}
+    for i, t in enumerate(tickets):
+        if t.shed:
+            continue
+        check(t.error is None and t.epoch in expect,
+              f"(d) request {t.seq}: epoch {t.epoch}, error {t.error!r}")
+        check(ticket_gids(t) == expect[t.epoch][i % len(msgs)],
+              f"(d) request {t.seq} differs from a stage on epoch "
+              f"{t.epoch}'s live set")
+        per_epoch[t.epoch] += 1
+    check(all(per_epoch.values()), f"(d) an epoch served no request: "
+                                   f"{per_epoch}")
+    out["serve"]["per_epoch"] = per_epoch
+    say(f"(d) requests per epoch {per_epoch}, each routed as a synchronous "
+        f"stage on its epoch's live set")
+    del loop_stage
+    torch.cuda.empty_cache()
+    return out
+
+
 # ------------------------------------------------------------------- main
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2115,10 +2386,12 @@ def main() -> int:
     sharded = sharded_phase(dtd, d, qs, bufs, run, short, level_ref, layout,
                             t["K2"][0], dev)
     api = api_phase(dtd, d, qs, bufs, run, short, level_ref, layout, dev)
+    mesh = mesh_phase(dtd, d, qs, bufs, run, short, level_ref, serving,
+                      sharded, dev)
 
     s = run["stats"]
     card = card_line()
-    say(f"phase 10: end to end on {card}: {len(run['payloads'])} documents, "
+    say(f"phase 11: end to end on {card}: {len(run['payloads'])} documents, "
         f"{run['n_bytes']} bytes in {run['e2e_s']:.3f} s = "
         f"{len(run['payloads']) / run['e2e_s']:.1f} docs/s, "
         f"{run['n_bytes'] / run['e2e_s'] / 1e6:.1f} MB/s (host clock around "
@@ -2145,6 +2418,10 @@ def main() -> int:
         f"autotune winner blk {api['autotune']['best']['blk']} "
         f"(effective {api['autotune']['best']['blk_eff']}); twigs "
         f"{api['twig']['ms_per_doc']:.3f} ms a message"
+        + f"; 2-D mesh ({mesh['positions']} positions): dense 1 MB "
+        f"{mesh['request_ms']:.3f} ms a request, pipelined depth 3 "
+        f"{mesh['pipelined'][3]['docs_per_s']:.1f} docs/s, serve loop "
+        f"{mesh['serve']['docs_per_s']:.1f} docs/s"
         + f"; serve loop: sparse pub-sub p50 "
         f"{serving['sparse']['p50_ms']:.3f} / p99 "
         f"{serving['sparse']['p99_ms']:.3f} ms at "
@@ -2182,6 +2459,12 @@ def main() -> int:
         # phase 9: the plan-cache routes, the autotune search, twigs, the
         # ops wrappers and the serving CLI, each launch counted
         row["api_launches"] = api["launches"][key]
+        # phase 10: the 2-D mesh, one launch a position (K3: a model
+        # position, on the 1-D mesh= path)
+        row["mesh_launches"] = mesh["launches"][key]
+        row["mesh_positions"] = mesh["positions"]
+        if key == "K2":
+            row["mesh_position_ms"] = mesh["position_ms"]
         if key in ("K1", "K2", "K3", "K4"):
             row["sharded_blocks"] = sharded["folded_blocks"]
         elif key == "K6":

@@ -36,7 +36,7 @@ BLOCK_TABLES = ("kb_tagmask", "kb_pw", "kb_pb", "kb_selfloop", "kb_init",
 #: plan metadata the port reads
 META_KEYS = ("max_depth", "n_states", "state_multiple", "blk", "n_blocks",
              "block_queries", "chunk", "byte_chunk", "grid_order",
-             "segment_target", "ep_tile")
+             "segment_target", "ep_tile", "prep")
 
 
 def _as_int32(x: np.ndarray) -> np.ndarray:

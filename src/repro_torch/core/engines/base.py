@@ -1,8 +1,7 @@
 """The engine contract of the port: ``FilterPlan``, ``FilterEngine``, registry.
 
-Counterpart of ``src/repro/core/engines/base.py`` (lines 64-1163,
-1213-1239, 1404-1474: all but the 2-D mesh paths), for engines whose
-compiled tables are torch tensors on one device:
+Counterpart of ``src/repro/core/engines/base.py``, for engines whose
+compiled tables are torch tensors:
 
 * :class:`FilterPlan` — a frozen dict of tables plus static metadata,
   built once per profile set by :meth:`FilterEngine.plan`: tensors on one
@@ -26,8 +25,15 @@ compiled tables are torch tensors on one device:
   recompiles one part (:meth:`ShardedPlan.add_queries`) or only
   tombstones (:meth:`ShardedPlan.remove_queries`), and
   :meth:`ShardedPlan.rebalance` migrates trie groups between parts.
-  ``mesh=`` must be ``None``: the multi-card paths are ROADMAP queue 1
-  item 13.
+* the mesh — ``mesh=`` (a :class:`~repro_torch.launch.mesh.FilterMesh`)
+  on the ``filter_*_sharded`` methods spreads the parts over the mesh's
+  ``"model"`` axis, and the ``*_sharded2d`` methods also spread the
+  documents over its ``"data"`` axis: one launch per mesh **position**,
+  over that position's model slice of the parts
+  (:meth:`ShardedPlan.model_slice`) and data slice of the batch, on the
+  position's device and stream (:class:`_Inflight`).  The results are
+  gathered in live-global-id order, pad rows sliced off.  A 1 × 1 mesh on
+  the engine's own device is the one-card path.
 * the persistent plan cache — ``plan_cache=`` (a
   :class:`~repro_torch.checkpoint.PlanCache` or a directory): every
   compile of a device engine goes through :meth:`FilterEngine.
@@ -39,6 +45,7 @@ compiled tables are torch tensors on one device:
 from __future__ import annotations
 
 import abc
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -50,7 +57,9 @@ import numpy as np
 import torch
 
 from ...kernels.ref import compact_rows
-from ..events import DEFAULT_MAX_DEPTH, ByteBatch, EventBatch, EventStream
+from ...launch.mesh import AXES, resolve_device
+from ..events import (DEFAULT_MAX_DEPTH, ByteBatch, EventBatch, EventStream,
+                      PlacedBytes)
 from ..nfa import (NFA, MinimizeStats, QueryPartition, _prefix_key,
                    _query_weight, compile_queries, pad_states,
                    partition_queries)
@@ -131,17 +140,6 @@ NOT_PORTED = {
 }
 
 
-#: what a ``mesh=`` argument asks for, and the ROADMAP item that ports it
-NO_MESH = ("mesh= is not ported yet: the port runs every part of a sharded "
-           "plan on one card (a 1x1 mesh, mesh=None); the multi-card and "
-           "2-D (data x model) paths are ROADMAP queue 1 item 13")
-
-
-def _check_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(NO_MESH)
-
-
 def _tables_digest(tables: Mapping[str, np.ndarray]) -> str:
     """sha256 over a plan's tables (names, dtypes, shapes, bytes), written
     with a cache entry and checked on a hit."""
@@ -187,6 +185,107 @@ def _use_on_current_stream(ready, tensors) -> None:
     stream.wait_event(ready)
     for t in tensors:
         t.record_stream(stream)
+
+
+# ------------------------------------------------------- mesh positions
+def _host_copy(t: torch.Tensor) -> torch.Tensor:
+    """A pinned host copy of a card tensor, queued on the current stream."""
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t, non_blocking=True)
+    return out
+
+
+class _Inflight:
+    """One dispatch's launches over mesh positions, in flight.
+
+    :meth:`run` runs a position's body on the position's device and, on a
+    card, its stream (:meth:`FilterMesh.use`); the body's output tensors
+    are copied to pinned host memory on that stream and an event is
+    recorded after them.  :meth:`wait` waits on those events only — never
+    on the whole card, which would also wait for batches dispatched after
+    this one — and returns each position's outputs as numpy arrays, in the
+    order the positions ran.  The pinned buffers the dispatch staged its
+    inputs from (:meth:`stage`), and what it hands to :meth:`keep`, live as
+    long as the dispatch, so a later batch never reuses one mid-copy.
+    """
+
+    def __init__(self, mesh) -> None:
+        self.mesh = mesh
+        self._outs: list = []
+        self._keep: list = []
+
+    def keep(self, obj) -> None:
+        self._keep.append(obj)
+
+    def stage(self, eng: "FilterEngine", array, idx) -> torch.Tensor:
+        """``array`` on position ``idx``'s device, copied from pinned memory
+        on the position's stream."""
+        return eng.to_device(array, device=self.mesh.device(idx),
+                             stream=self.mesh.stream(idx), keep=self._keep)
+
+    def run(self, idx, fn) -> None:
+        dev = self.mesh.device(idx)
+        with self.mesh.use(idx):
+            outs = tuple(fn(dev))
+            event = None
+            if dev.type == "cuda":
+                outs = tuple(_host_copy(t) for t in outs)
+                event = torch.cuda.Event()
+                event.record()
+        self._outs.append((event, outs))
+
+    def wait(self) -> list[tuple[np.ndarray, ...]]:
+        for event, _ in self._outs:
+            if event is not None:
+                event.synchronize()
+        return [tuple(t.numpy() for t in outs) for _, outs in self._outs]
+
+
+@dataclasses.dataclass
+class _Position:
+    """What a position's body gets: its dispatch, index, ``(data, model)``
+    coordinates, device, and model slice of the sharded plan (waited for
+    on the position's stream)."""
+
+    fl: _Inflight
+    idx: tuple
+    d: int
+    m: int
+    dev: torch.device
+    sub: "ShardedPlan"
+
+    def stage(self, eng: "FilterEngine", array) -> torch.Tensor:
+        return self.fl.stage(eng, array, self.idx)
+
+
+def _live_perm(sharded: "ShardedPlan", n_model: int) -> np.ndarray:
+    """Columns gathered model position by model position (each in
+    ascending global id) → the permutation into live-global-id order."""
+    live = sharded.live_ids()
+    part = sharded.partition.part_of[live] // (sharded.n_parts // n_model)
+    order = np.concatenate([live[part == m] for m in range(n_model)])
+    return np.argsort(order, kind="stable")
+
+
+def _gather(outs: list, n_data: int, n_model: int, perm: np.ndarray,
+            k: int) -> np.ndarray:
+    """Output ``k`` of every position, ``(rows, ..., Q_m)`` each in ``(d,
+    m)`` order → one array: model slices side by side, data slices one
+    under another, columns in live-global-id order."""
+    return np.concatenate([np.concatenate(
+        [outs[d * n_model + m][k] for m in range(n_model)], -1)
+        for d in range(n_data)], 0)[..., perm]
+
+
+def _position_rows(outs: list, cap: int
+                   ) -> tuple[tuple[np.ndarray, ...], int, bool]:
+    """Each position's ``(cap, 3)`` match buffer and count (host) → the
+    real rows of all, the summed count, and whether ANY position
+    overflowed its buffer (each bounds ``cap`` on its own)."""
+    rows = np.concatenate([buf[:min(int(cnt[0]), cap)] for buf, cnt in outs])
+    counts = [int(cnt[0]) for _, cnt in outs]
+    return ((rows[:, 0], rows[:, 1], rows[:, 2]), sum(counts),
+            any(c > cap for c in counts))
 
 
 # ----------------------------------------------------------------- the plan
@@ -239,6 +338,10 @@ class FilterPlan:
 
 
 # ------------------------------------------------------------ sharded plans
+#: guards every sharded plan's memo of model slices
+_SLICE_LOCK = threading.Lock()
+
+
 def _stack_tables(plans: Sequence[FilterPlan]) -> dict[str, torch.Tensor]:
     """Per-part tables of equal shapes → ``(P, ...)`` tensors."""
     return {k: torch.stack([p[k] for p in plans]) for k in plans[0].tables}
@@ -278,7 +381,8 @@ class ShardedPlan:
 
     __slots__ = ("engine", "plans", "part_cols", "part_queries",
                  "part_nfas", "pads", "n_global", "query_bucket", "shared",
-                 "_engine_obj", "_stacked", "_partition", "_ready")
+                 "_engine_obj", "_stacked", "_partition", "_ready",
+                 "_slices")
 
     def __init__(self, engine_obj: "FilterEngine",
                  plans: Sequence[FilterPlan],
@@ -303,6 +407,7 @@ class ShardedPlan:
         object.__setattr__(self, "shared", bool(shared))
         object.__setattr__(self, "_engine_obj", engine_obj)
         object.__setattr__(self, "_partition", None)
+        object.__setattr__(self, "_slices", {})
         if stacked is None and engine_obj.device_sharded:
             meta = dict(self.plans[0].meta, n_parts=len(self.plans))
             stacked = FilterPlan(self.engine, _stack_tables(self.plans),
@@ -389,6 +494,49 @@ class ShardedPlan:
 
     def part_sizes(self) -> np.ndarray:
         return self.partition.part_sizes()
+
+    def model_slice(self, m: int, n_model: int,
+                    device: torch.device | None = None) -> "ShardedPlan":
+        """Model position ``m`` of ``n_model``'s parts, ``[m·P/M,
+        (m+1)·P/M)``, as a sharded plan of their own on ``device``.
+
+        Its stacked tables are views of this plan's rows on this plan's
+        device, and one copy of them on another device (whose per-part
+        plans are then views of the copy).  Memoised on this plan per
+        (device, slice): churn and rebalance build a new plan, so a batch
+        of the old epoch keeps its slices and a new batch never sees a
+        stale one.  The whole plan on its own device is this plan.  Build
+        it on the stream that reads it: the slice waits for this plan's
+        tables there and records its own ready event after them.
+        """
+        per = self.n_parts // n_model
+        lo, hi = m * per, (m + 1) * per
+        dev = self.device if device is None else torch.device(device)
+        if (lo, hi) == (0, self.n_parts) and dev == self.device:
+            return self
+        key = (lo, hi, dev)
+        with _SLICE_LOCK:
+            hit = self._slices.get(key)
+        if hit is not None:
+            return hit
+        self.wait()
+        plans, stacked = self.plans[lo:hi], None
+        if self._stacked is not None:
+            tables = {k: v[lo:hi] if dev == self.device else v[lo:hi].to(dev)
+                      for k, v in self._stacked.tables.items()}
+            stacked = FilterPlan(self.engine, tables,
+                                 dict(self._stacked.meta, n_parts=hi - lo))
+            if dev != self.device:
+                plans = [FilterPlan(pl.engine,
+                                    {k: t[i] for k, t in tables.items()},
+                                    pl.meta)
+                         for i, pl in enumerate(plans)]
+        sub = ShardedPlan(self._engine_obj, plans, self.part_cols[lo:hi],
+                          self.part_queries[lo:hi], self.part_nfas[lo:hi],
+                          self.pads, self.n_global, self.query_bucket,
+                          self.shared, stacked=stacked)
+        with _SLICE_LOCK:
+            return self._slices.setdefault(key, sub)
 
     def gid_columns(self) -> np.ndarray:
         """``(P, Qpad)`` global id per compiled plan column; ``-1`` marks
@@ -733,12 +881,40 @@ class FilterEngine(abc.ABC):
         return self._run_with_plan(self.plan_, self._prep(batch))
 
     # ------------------------------------------------- explicit-plan filter
-    def _prep(self, batch: EventBatch) -> tuple:
+    def _prep_host(self, batch: EventBatch) -> tuple:
         """Plan-independent document-side preparation (device engines):
-        whatever :meth:`_run_with_plan` consumes — event tensors, level
-        buckets, chunk layouts — on this engine's device."""
+        whatever :meth:`_run_with_plan` consumes — event words, level
+        buckets, chunk layouts — as host arrays (tensors for a batch
+        parsed on a device), before they are staged on a device."""
         raise NotImplementedError(
             f"{self.name}: no device prep (host engine)")
+
+    def _prep(self, batch: EventBatch) -> tuple:
+        """:meth:`_prep_host` staged on this engine's device."""
+        return tuple(self.to_device(a) for a in self._prep_host(batch))
+
+    def _parse_arrays(self, data: torch.Tensor, n_events: int,
+                      max_depth: int) -> tuple:
+        """Device parse of a ``(B, L)`` byte tensor into what
+        :meth:`_prep_arrays` takes: ``(kind, tag, depth, parent, valid,
+        n)`` (:func:`repro_torch.kernels.parse.parse_arrays`)."""
+        from ...kernels.parse import parse_arrays
+
+        return parse_arrays(data, n_events=n_events, max_depth=max_depth)
+
+    def _prep_arrays(self, kind, tag, depth, parent, valid, n_events
+                     ) -> tuple:
+        """Device-side document prep straight from the parse's outputs.
+
+        Implemented by engines whose plan metadata records ``prep ==
+        "events-device"`` (streaming, matscan: their kernels consume the
+        raw event stream), which is what lets the 2-D bytes route parse
+        and filter on a position with no host hop.  Engines with host
+        prep (the levelwise family buckets by depth in numpy) or host
+        execution never get here."""
+        raise NotImplementedError(
+            f"{self.name}: no device parse prep "
+            f"(plan meta 'prep' is not 'events-device')")
 
     def _run_with_plan(self, plan: FilterPlan, prep: tuple
                        ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -893,7 +1069,7 @@ class FilterEngine(abc.ABC):
                 if old is not None and old[0] is obj:
                     hit = old
                 else:
-                    if len(cache) >= 8:
+                    if len(cache) >= 32:
                         cache.pop(next(iter(cache)))
                     cache[key] = hit
         _, val, ready = hit
@@ -1138,19 +1314,123 @@ class FilterEngine(abc.ABC):
         return FilterResult(matched[part, :, local].T.cpu().numpy(),
                             first[part, :, local].T.cpu().numpy())
 
+    def _position_verdicts(self, sub: ShardedPlan, prep: tuple
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+        """One mesh position's launch: a prepped batch slice through the
+        parts of ``sub`` → ``(B, Q_live(sub))`` matched (bool) and first
+        (int32) on the position's device, columns in ascending global
+        id.  Engines whose kernel reads lanes (streaming) override it."""
+        matched, first = self._run_parts(sub, prep)
+        part, local = self._live_index(sub)
+        return matched[part, :, local].T, first[part, :, local].T
+
+    # --------------------------------------------------------- the mesh
+    def _one_card(self, mesh) -> bool:
+        """No mesh, or a 1 × 1 mesh on this engine's own device: the
+        one-card path, every part in one launch on the current stream."""
+        return mesh is None or (
+            mesh.size == 1 and mesh.devices[0] == resolve_device(self.device))
+
+    def _check_model_axis(self, sharded: ShardedPlan, mesh) -> None:
+        if mesh is None:
+            return
+        axis = dict(mesh.shape).get("model", 1)
+        if axis > 1 and sharded.n_parts % axis != 0:
+            raise ValueError(
+                f"n_parts={sharded.n_parts} not divisible by mesh "
+                f"model axis {axis}")
+
+    def _mesh_axes2d(self, mesh) -> tuple[int, int]:
+        if mesh is None:
+            raise ValueError(
+                "the 2-D path needs a ('data', 'model') mesh — see "
+                "repro_torch.launch.mesh.make_filter_mesh(data_shards=...)")
+        shape = dict(mesh.shape)
+        if "data" not in shape or "model" not in shape:
+            raise ValueError(
+                f"2-D filtering needs a ('data', 'model') mesh, got axes "
+                f"{tuple(shape)}")
+        return shape["data"], shape["model"]
+
+    def _positions(self, sharded: ShardedPlan, mesh, body, *,
+                   n_data: int | None = None) -> tuple[_Inflight, int]:
+        """Run ``body(pos)`` (a :class:`_Position`) at every position of
+        the mesh's ``"data"`` × ``"model"`` grid, or with ``n_data=None``
+        at the model positions of its first data row (the 1-D ``mesh=``
+        paths: the parts over ``"model"``, the whole batch at each).
+        Returns the dispatch in flight and the model axis's size."""
+        shape = dict(mesh.shape)
+        n_model = shape.get("model", 1)
+        fl = _Inflight(mesh)
+        for d in range(1 if n_data is None else n_data):
+            for m in range(n_model):
+                coords = {a: c for a, c in zip(AXES, (d, m)) if a in shape}
+                idx = mesh.position(**coords)
+
+                def fn(dev, d=d, m=m, idx=idx):
+                    sub = sharded.model_slice(m, n_model, dev)
+                    sub.wait()
+                    return body(_Position(fl, idx, d, m, dev, sub))
+
+                fl.run(idx, fn)
+        return fl, n_model
+
+    def _model_verdicts(self, sharded: ShardedPlan, mesh, body
+                        ) -> tuple[np.ndarray, np.ndarray]:
+        """The 1-D ``mesh=`` run: ``body`` at each model position, then
+        ``(rows, ..., Q_live)`` matched and first on the host."""
+        fl, n_model = self._positions(sharded, mesh, body)
+        outs, perm = fl.wait(), _live_perm(sharded, n_model)
+        return _gather(outs, 1, n_model, perm, 0), _gather(
+            outs, 1, n_model, perm, 1)
+
+    def _materializer2d(self, fl: _Inflight, sharded: ShardedPlan,
+                        n_data: int, n_model: int, finish):
+        """Zero-arg materializer of a 2-D dispatch: calling it waits on the
+        positions' events, gathers every position's ``(rows, ..., Q_m)``
+        outputs in live-global-id order, and hands them to ``finish``,
+        which slices off the pad rows (the deferred half of
+        :meth:`dispatch_batch_sharded2d`)."""
+        perm = _live_perm(sharded, n_model)
+
+        def materialize() -> FilterResult:
+            outs = fl.wait()
+            return finish(_gather(outs, n_data, n_model, perm, 0),
+                          _gather(outs, n_data, n_model, perm, 1))
+
+        return materialize
+
+    def _stage_rows(self, pos: _Position, placed, rows,
+                    n_rows: int) -> torch.Tensor:
+        """A position's slice of byte rows on its device: the copy a
+        :meth:`ByteBatch.device_put` over the same mesh staged there, or
+        ``rows[d·n:(d+1)·n]`` staged now."""
+        if placed is not None and placed.mesh is pos.fl.mesh:
+            return placed.take(pos.idx)
+        return pos.stage(self, rows[pos.d * n_rows:(pos.d + 1) * n_rows])
+
+    # ------------------------------------------------------- sharded runs
     def filter_batch_sharded(self, batch: EventBatch, sharded: ShardedPlan,
                              *, mesh=None) -> FilterResult:
         """Filter through a partitioned plan; ``(B, Q_live)`` result.
 
         Device engines run every part in one launch of their kernel on
-        this card; host engines loop parts.  Columns come back in
-        live-global-id order (the original query order for an unchurned
-        plan), tombstones excluded.  ``mesh`` must be ``None``.
+        this card, or with ``mesh`` (:func:`repro_torch.launch.mesh.
+        make_filter_mesh`) the parts spread over the mesh's ``"model"``
+        axis, each position folding its slice of them into one launch;
+        host engines loop parts.  Columns come back in live-global-id
+        order (the original query order for an unchurned plan),
+        tombstones excluded.
         """
-        _check_mesh(mesh)
         if self.device_sharded:
-            return self._live_columns(*self._run_sharded(batch, sharded),
-                                      sharded)
+            self._check_model_axis(sharded, mesh)
+            if self._one_card(mesh):
+                return self._live_columns(
+                    *self._run_sharded(batch, sharded), sharded)
+            host = self._prep_host(batch)
+            return FilterResult(*self._model_verdicts(
+                sharded, mesh, lambda pos: self._position_verdicts(
+                    pos.sub, tuple(pos.stage(self, a) for a in host))))
         part_of, local_of = sharded.index_arrays()
         outs = [self.filter_batch_with_plan(plan, batch)
                 for plan in sharded.plans]
@@ -1170,31 +1450,57 @@ class FilterEngine(abc.ABC):
         compaction over the ``(P, B, Qpad)`` verdicts with columns named
         by global subscriber id (tombstoned and pad columns discarded on
         the device); ``query_ids`` are global ids and ``densify`` gives
-        back :meth:`filter_batch_sharded`."""
-        _check_mesh(mesh)
+        back :meth:`filter_batch_sharded`.  With ``mesh`` each model
+        position compacts its parts into a buffer of its own; the rows
+        come back whole while the summed count fits ``cap``, as the one
+        compaction's would."""
         live_ids = sharded.live_ids()
         if not self.device_sharded:
-            sp = self.filter_batch_sharded(batch, sharded).sparsify(live_ids)
+            sp = self.filter_batch_sharded(batch, sharded,
+                                           mesh=mesh).sparsify(live_ids)
             sp.meta["path"] = "dense-host"
             return sp
-        matched, first = self._run_sharded(batch, sharded)
+        self._check_model_axis(sharded, mesh)
         b = batch.batch_size
         cap = self.match_cap(b, len(live_ids), match_cap)
-        cols = torch.from_numpy(sharded.gid_columns()).to(matched.device)
-        *bufs, n = _compact_parts(matched, first, cols, cap)
+        if self._one_card(mesh):
+            matched, first = self._run_sharded(batch, sharded)
+            cols = torch.from_numpy(sharded.gid_columns()).to(matched.device)
+            *bufs, n = _compact_parts(matched, first, cols, cap)
+            return self._sparse_from_buffers(
+                bufs, int(n), cap, batch_size=b, n_queries=len(live_ids),
+                live_ids=live_ids, sort=True,
+                meta={"path": "device-compact"},
+                dense_fallback=lambda: self._live_columns(matched, first,
+                                                          sharded))
+        host = self._prep_host(batch)
+
+        def body(pos):
+            matched, first = self._run_parts(
+                pos.sub, tuple(pos.stage(self, a) for a in host))
+            cols = torch.from_numpy(pos.sub.gid_columns()).to(pos.dev)
+            bdoc, bcol, bfirst, n = _compact_parts(matched, first, cols, cap)
+            return bdoc, bcol, bfirst, n.reshape(1)
+
+        fl, _ = self._positions(sharded, mesh, body)
+        outs = fl.wait()
+        (docs, cols, first), n, _ = _position_rows(
+            [(np.stack(o[:3], 1), o[3]) for o in outs], cap)
         return self._sparse_from_buffers(
-            bufs, int(n), cap, batch_size=b, n_queries=len(live_ids),
-            live_ids=live_ids, sort=True, meta={"path": "device-compact"},
-            dense_fallback=lambda: self._live_columns(matched, first,
-                                                      sharded))
+            [torch.from_numpy(x) for x in (docs, cols, first)], n, cap,
+            batch_size=b, n_queries=len(live_ids), live_ids=live_ids,
+            sort=True, meta={"path": "device-compact"},
+            dense_fallback=lambda: self.filter_batch_sharded(
+                batch, sharded, mesh=mesh))
 
     def filter_bytes_sharded(self, bb: ByteBatch, sharded: ShardedPlan, *,
                              bucket: int | None = None,
                              mesh=None) -> FilterResult:
         """Sharded twin of :meth:`filter_bytes`: device parse once, then
-        every part in one launch; bytes in, ``(B, Q_live)`` out."""
-        _check_mesh(mesh)
-        return self.filter_batch_sharded(self._parse(bb, bucket), sharded)
+        every part in one launch (or one a model position); bytes in,
+        ``(B, Q_live)`` out."""
+        return self.filter_batch_sharded(self._parse(bb, bucket), sharded,
+                                         mesh=mesh)
 
     def filter_bytes_sharded_sparse(self, bb: ByteBatch,
                                     sharded: ShardedPlan, *,
@@ -1203,9 +1509,126 @@ class FilterEngine(abc.ABC):
                                     ) -> SparseResult:
         """Sharded bytes → sparse twin: device parse, then
         :meth:`filter_batch_sharded_sparse`."""
-        _check_mesh(mesh)
         return self.filter_batch_sharded_sparse(
-            self._parse(bb, bucket), sharded, match_cap=match_cap)
+            self._parse(bb, bucket), sharded, mesh=mesh, match_cap=match_cap)
+
+    # ------------------------------------------------ 2-D (data × model)
+    def dispatch_batch_sharded2d(self, batch: EventBatch,
+                                 sharded: ShardedPlan, *, mesh):
+        """Launch the 2-D (data × model) filter; returns a zero-arg
+        materializer — call it to wait and get the ``(B, Q_live)``
+        :class:`FilterResult`.
+
+        Both of the paper's replication axes (§3.5): the stacked per-part
+        tables are split over the mesh's ``"model"`` axis (each position
+        advances its slice of the subscription set, folded into one
+        launch) and the batch over ``"data"`` (each row of positions sees
+        its slice of the documents).  The batch is padded to a multiple
+        of the data axis with inert all-PAD documents, sliced back off
+        the result, so any batch size is servable.  The launches are
+        queued on the positions' streams and this returns at once; the
+        materializer is the synchronisation point, which the pipelined
+        route overlaps the next batch's staging against.  Host engines
+        compute eagerly (the part loop is the bit-equivalence oracle for
+        this path) and return an already-resolved thunk.
+        """
+        if not self.device_sharded:
+            res = self.filter_batch_sharded(batch, sharded)
+            return lambda: res
+        n_data, n_model = self._mesh_axes2d(mesh)
+        self._check_model_axis(sharded, mesh)
+        b0 = batch.batch_size
+        batch = batch.pad_batch_to(_round_up(b0, n_data))
+        rows = batch.batch_size // n_data
+        hosts = [self._prep_host(batch.rows(d * rows, (d + 1) * rows))
+                 for d in range(n_data)]
+        fl, _ = self._positions(
+            sharded, mesh, lambda pos: self._position_verdicts(
+                pos.sub, tuple(pos.stage(self, a) for a in hosts[pos.d])),
+            n_data=n_data)
+        return self._materializer2d(
+            fl, sharded, n_data, n_model,
+            lambda m, f: FilterResult(m[:b0], f[:b0]))
+
+    def filter_batch_sharded2d(self, batch: EventBatch,
+                               sharded: ShardedPlan, *,
+                               mesh) -> FilterResult:
+        """Blocking convenience over :meth:`dispatch_batch_sharded2d`."""
+        return self.dispatch_batch_sharded2d(batch, sharded, mesh=mesh)()
+
+    def filter_batch_sharded2d_sparse(self, batch: EventBatch,
+                                      sharded: ShardedPlan, *, mesh,
+                                      match_cap: int | None = None
+                                      ) -> SparseResult:
+        """Sparse wire format over the 2-D path: the gathered dense
+        result, sparsified on the host (``path="dense-2d"``)."""
+        sp = self.filter_batch_sharded2d(
+            batch, sharded, mesh=mesh).sparsify(sharded.live_ids())
+        sp.meta["path"] = "dense-2d"
+        return sp
+
+    def dispatch_bytes_sharded2d(self, bb, sharded: ShardedPlan, *,
+                                 bucket: int | None = None, mesh,
+                                 n_events: int | None = None):
+        """ByteBatch twin of :meth:`dispatch_batch_sharded2d`.
+
+        ``bb`` is a :class:`ByteBatch`, or one already staged over the mesh
+        (:meth:`ByteBatch.device_put`), whose per-position copies the
+        launches then read.  Engines whose plan records ``prep ==
+        "events-device"`` parse each position's slice of the wire bytes
+        on its device (K5) and filter it there
+        (:meth:`_parse_arrays`, :meth:`_prep_arrays`); engines with host
+        prep (the levelwise family) parse each slice on its device, bucket
+        it on the host and filter it on the device (the reference's
+        parse-first route, :func:`~repro_torch.kernels.parse.
+        parse_tensor`, raising ``DepthOverflow`` past ``max_depth``); host
+        engines loop parts (the bit-equivalence oracle).
+
+        ``n_events`` is the static compacted event bound; the pipelined
+        route computes it from the host copy before staging.
+        """
+        from ...kernels.parse import parse_batch, parse_tensor
+
+        placed = bb if isinstance(bb, PlacedBytes) else None
+        host = placed.host if placed is not None else bb
+        max_depth = int(getattr(self, "max_depth", DEFAULT_MAX_DEPTH))
+        if n_events is None:
+            n_events = host.event_bound(bucket=self._event_bucket(bucket))
+        if not self.device_sharded:
+            res = self.filter_batch_sharded(
+                parse_batch(host, n_events=n_events, max_depth=max_depth,
+                            device=self.device), sharded)
+            return lambda: res
+        n_data, n_model = self._mesh_axes2d(mesh)
+        self._check_model_axis(sharded, mesh)
+        b0 = host.batch_size
+        padded = host.pad_batch_to(_round_up(b0, n_data))
+        rows = padded.batch_size // n_data
+        on_device = sharded.plans[0].meta.get("prep") == "events-device"
+
+        def body(pos):
+            data = self._stage_rows(pos, placed, padded.data, rows)
+            if on_device:
+                prep = self._prep_arrays(
+                    *self._parse_arrays(data, n_events, max_depth))
+            else:
+                eb = parse_tensor(data, n_events=n_events,
+                                  max_depth=max_depth, first_doc=pos.d * rows)
+                prep = tuple(pos.stage(self, a) for a in self._prep_host(eb))
+            return self._position_verdicts(pos.sub, prep)
+
+        fl, _ = self._positions(sharded, mesh, body, n_data=n_data)
+        fl.keep(placed)
+        return self._materializer2d(
+            fl, sharded, n_data, n_model,
+            lambda m, f: FilterResult(m[:b0], f[:b0]))
+
+    def filter_bytes_sharded2d(self, bb, sharded: ShardedPlan, *,
+                               bucket: int | None = None, mesh,
+                               n_events: int | None = None) -> FilterResult:
+        """Blocking convenience over :meth:`dispatch_bytes_sharded2d`."""
+        return self.dispatch_bytes_sharded2d(
+            bb, sharded, bucket=bucket, mesh=mesh, n_events=n_events)()
 
     # --------------------------------------------------------- conveniences
     def filter_document(self, ev: EventStream) -> FilterResult:
@@ -1215,19 +1638,35 @@ class FilterEngine(abc.ABC):
     def filter_documents(self, docs) -> FilterResult:
         return self.filter_batch(EventBatch.from_streams(list(docs)))
 
-    def to_device(self, array: np.ndarray) -> torch.Tensor:
-        """Stage a host array on this engine's device.
+    def to_device(self, array, *, device: torch.device | None = None,
+                  stream=None, keep: list | None = None) -> torch.Tensor:
+        """Stage a host array on ``device`` (this engine's by default).
 
         On a card the array is copied once into pinned host memory and
-        sent with a ``non_blocking`` copy on the current stream, so the
-        transfer overlaps host work until a kernel on that stream needs
-        it; on the CPU the tensor shares the array's memory.
+        sent with a ``non_blocking`` copy on ``stream`` (the current
+        stream by default), so the transfer overlaps host work until a
+        kernel on that stream needs it; ``keep`` (a list) gets the pinned
+        buffer, for a caller that must hold it until the copy is done.  On
+        the CPU the tensor shares the array's memory.  A tensor already on
+        a device is copied to ``device`` on ``stream``.
         """
-        array = np.ascontiguousarray(array)
-        t = torch.from_numpy(array if array.flags.writeable else array.copy())
-        if self.device.type != "cuda":
-            return t.to(self.device)
-        return t.pin_memory().to(self.device, non_blocking=True)
+        dev = self.device if device is None else torch.device(device)
+        with (torch.cuda.stream(stream) if stream is not None
+              else contextlib.nullcontext()):
+            if isinstance(array, torch.Tensor) and array.device.type != "cpu":
+                return array.to(dev, non_blocking=True)
+            if isinstance(array, torch.Tensor):
+                t = array.contiguous()
+            else:
+                array = np.ascontiguousarray(array)
+                t = torch.from_numpy(array if array.flags.writeable
+                                     else array.copy())
+            if dev.type != "cuda":
+                return t.to(dev)
+            pinned = t.pin_memory()
+            if keep is not None:
+                keep.append(pinned)
+            return pinned.to(dev, non_blocking=True)
 
     # ---------------------------------------------- kernel autotune hook
     @staticmethod

@@ -479,9 +479,6 @@ class _LevelEngine(base.FilterEngine):
         return (matched.view(b, p, -1).permute(1, 0, 2),
                 first.view(b, p, -1).permute(1, 0, 2))
 
-    def _stage(self, *arrays: np.ndarray) -> tuple[torch.Tensor, ...]:
-        return tuple(self.to_device(a) for a in arrays)
-
     def filter_batch(self, batch: EventBatch) -> FilterResult:
         return self.filter_batch_with_plan(self.plan_, batch)
 
@@ -494,7 +491,7 @@ class _LevelEngine(base.FilterEngine):
     def _one(self, *arrays: np.ndarray) -> FilterResult:
         """One document's host layout → its verdicts (a batch of one)."""
         matched, first = self._run_with_plan(
-            self.plan_, self._stage(*(a[None] for a in arrays)))
+            self.plan_, tuple(self.to_device(a[None]) for a in arrays))
         return FilterResult(matched[0].cpu().numpy(), first[0].cpu().numpy())
 
 
@@ -516,7 +513,7 @@ class WavefrontEngine(_LevelEngine):
         cd = chunkize(ev, self.chunk)
         return self._one(cd.tags, cd.parent_idx, cd.valid, cd.event_idx)
 
-    def _prep(self, batch: EventBatch) -> tuple:
+    def _prep_host(self, batch: EventBatch) -> tuple:
         # precomputed batch structure → no per-event host re-walk
         cds = [chunkize_level(ld, self.chunk)
                for ld in _leveldocs_of_batch(batch)]
@@ -548,10 +545,10 @@ class WavefrontEngine(_LevelEngine):
             parent = np.where(c.parent_idx >= nc * c.chunk, nc * c.chunk,
                               c.parent_idx)
             fixed.append(ChunkDoc(c.tags, parent, c.valid, c.event_idx))
-        return self._stage(np.stack([c.tags for c in fixed]),
-                           np.stack([c.parent_idx for c in fixed]),
-                           np.stack([c.valid for c in fixed]),
-                           np.stack([c.event_idx for c in fixed]))
+        return (np.stack([c.tags for c in fixed]),
+                np.stack([c.parent_idx for c in fixed]),
+                np.stack([c.valid for c in fixed]),
+                np.stack([c.event_idx for c in fixed]))
 
     def _run_with_plan(self, plan: base.FilterPlan, prep: tuple):
         run = _run_wavefront_kernel if self.use_kernel else _run_wavefront
@@ -576,10 +573,10 @@ class LevelwiseEngine(_LevelEngine):
         ld = levelize(ev)
         return self._one(ld.tags, ld.parent_slot, ld.valid, ld.event_idx)
 
-    def _prep(self, batch: EventBatch) -> tuple:
+    def _prep_host(self, batch: EventBatch) -> tuple:
         # precomputed batch structure → no per-event host re-walk
         ld = _stack_leveldocs(_leveldocs_of_batch(batch))
-        return self._stage(ld.tags, ld.parent_slot, ld.valid, ld.event_idx)
+        return ld.tags, ld.parent_slot, ld.valid, ld.event_idx
 
     def _run_with_plan(self, plan: base.FilterPlan, prep: tuple):
         return _run_level(*prep, plan, use_matmul=self.use_matmul,

@@ -188,12 +188,15 @@ class MatscanEngine(base.FilterEngine):
         return (matched.view(b, p, -1).permute(1, 0, 2),
                 first.view(b, p, -1).permute(1, 0, 2))
 
-    def _prep(self, batch: EventBatch) -> tuple:
+    def _prep_host(self, batch: EventBatch) -> tuple:
         if batch.is_device:
-            return (batch.kind.to(self.device, torch.int32),
-                    batch.tag_id.to(self.device))
-        return (self.to_device(batch.kind.astype(np.int32)),
-                self.to_device(batch.tag_id))
+            return batch.kind.to(torch.int32), batch.tag_id
+        return batch.kind.astype(np.int32), batch.tag_id
+
+    def _prep_arrays(self, kind, tag, depth, parent, valid, n_events
+                     ) -> tuple:
+        # the scan reads only (kind, tag)
+        return kind.to(torch.int32), tag
 
     def _run_with_plan(self, plan: base.FilterPlan, prep: tuple):
         kind, tag = prep

@@ -20,6 +20,12 @@ hand-written kernels run them (:mod:`repro_torch.kernels.stream_filter`):
   kernel itself (K4, K3: ``path="kernel-fused"``) or, for caps past the
   epilogue rule, compacted from K1's lanes (``"lane-compact"``); a
   saturated buffer is recomputed densely (``"dense-overflow"``).
+* ``mesh=`` on the sharded methods and the ``*_sharded2d`` methods — the
+  same kernels launched once per mesh position, over the position's
+  ``"model"`` slice of the folded blocks and (2-D) its ``"data"`` slice
+  of the batch: K1 and K4 over events, K2 over bytes (segment-packed
+  under ``pack=``), K3 over bytes with ``mesh=``; each sparse position
+  fills a buffer of its own (:func:`base._position_rows`).
 
 The accept-lane → query gather (the paper's priority encoder), the
 scatter of packed slots back to batch order and the expansion of accept
@@ -35,7 +41,7 @@ from ...kernels import parse as parse_mod
 from ...kernels import stream_filter as sf
 from ...kernels.predecode import predecode
 from ..events import (DEFAULT_MAX_DEPTH, SEG_SENTINEL, ByteBatch, EventBatch,
-                      SegmentPack, pack_segments)
+                      PlacedBytes, SegmentPack, pack_segments)
 from ..nfa import NFA, pad_states
 from . import base
 from .result import NO_MATCH, FilterResult, SparseResult
@@ -211,9 +217,12 @@ class StreamingEngine(base.FilterEngine):
                       kb_selfloop=mk.selfloop_words, kb_init=mk.init_words,
                       kb_acc_word=mk.acc_word, kb_acc_bit=mk.acc_bit,
                       kb_acc_block=mk.acc_block, kb_acc_slot=mk.acc_slot)
+        # K1/K2 consume the raw event stream: document prep is on the
+        # device (what the 2-D bytes route keys on, as in the JAX package)
         meta = dict(cfg, n_states=nfa.n_states, max_depth=self.max_depth,
                     state_multiple=self.state_multiple, blk=mk.blk,
-                    n_blocks=mk.n_blocks, block_queries=mk.block_queries)
+                    n_blocks=mk.n_blocks, block_queries=mk.block_queries,
+                    prep="events-device")
         return plan_from_numpy(tables, meta, self.device)
 
     def _plan_from_tables(self, tables, meta) -> base.FilterPlan:
@@ -338,6 +347,33 @@ class StreamingEngine(base.FilterEngine):
                                 torch.from_numpy(np.asarray(tag)))
         return self.to_device(events.numpy())
 
+    def _prep_host(self, batch: EventBatch) -> tuple:
+        """The batch's fused event words: a host array, or a tensor on the
+        batch's device."""
+        if batch.is_device:
+            return (sf.fuse_events(batch.kind, batch.tag_id),)
+        return (sf.fuse_events(torch.from_numpy(np.asarray(batch.kind)),
+                               torch.from_numpy(np.asarray(batch.tag_id))
+                               ).numpy(),)
+
+    def _parse_arrays(self, data: torch.Tensor, n_events: int,
+                      max_depth: int) -> tuple:
+        """K5 and the compaction only: K1 reads no depth or parent."""
+        kind, tag, n = parse_mod.compact_events(*predecode(data), n_events)
+        return kind, tag, None, None, None, n
+
+    def _prep_arrays(self, kind, tag, depth, parent, valid, n_events
+                     ) -> tuple:
+        return (sf.fuse_events(kind, tag),)
+
+    def _position_verdicts(self, sub: base.ShardedPlan, prep: tuple
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+        """K1 over the position's folded blocks → ``(B, Q_live(sub))``."""
+        stacked = sub.stacked()
+        mb, fb = sf.stream_filter(prep[0], *self._folded(stacked),
+                                  max_depth=stacked.meta["max_depth"])
+        return self._sharded_lanes_to_queries(mb, fb, sub)
+
     def device_verdicts(self, batch: EventBatch
                         ) -> tuple[torch.Tensor, torch.Tensor]:
         """Events → ``(B, Q)`` verdicts through K1, left on the device."""
@@ -443,7 +479,8 @@ class StreamingEngine(base.FilterEngine):
     def _expand_class_hits(self, bufs, count: int, cap: int, offsets,
                            members, *, batch_size: int, meta: dict,
                            dense_fallback, n_queries: int | None = None,
-                           live_ids=None) -> SparseResult:
+                           live_ids=None,
+                           overflowed: bool | None = None) -> SparseResult:
         """Class-hit rows → per-subscriber :class:`SparseResult`.
 
         Each row names an accept class; ``offsets``/``members`` is the
@@ -452,10 +489,11 @@ class StreamingEngine(base.FilterEngine):
         subscribers becomes k (doc, id) rows, sorted by (doc, id), so the
         result does not depend on the order the card emitted the rows in.
         Overflow (``count > cap``) is recomputed densely, exact but
-        unbounded, as ``path="dense-overflow"``.
+        unbounded, as ``path="dense-overflow"``; ``overflowed`` overrides
+        the test for mesh runs, whose buffers each bound ``cap``.
         """
         n_queries = self.n_queries if n_queries is None else n_queries
-        if count > cap:
+        if (count > cap) if overflowed is None else overflowed:
             sp = dense_fallback().sparsify(live_ids)
             sp.overflowed = True
             sp.meta.update(meta, match_cap=cap, device_rows=int(count),
@@ -615,11 +653,48 @@ class StreamingEngine(base.FilterEngine):
 
         return self._lane_memo(sharded, build, "sharded-lanes")
 
+    @staticmethod
+    def _mark_base_path(sp: SparseResult) -> SparseResult:
+        """Record that a sparse call left the kernel's epilogue for the
+        base class's route (kept as ``base_path``)."""
+        sp.meta["base_path"] = sp.meta.get("path")
+        sp.meta["path"] = ("dense-overflow" if sp.overflowed
+                           else "base-fallback")
+        return sp
+
+    def _lane_slice(self, sharded: base.ShardedPlan, pos) -> torch.Tensor:
+        """A position's model slice of the sharded plan's lane → class
+        table, ``(P/M·G, QB)``, on its device: a view on the plan's device,
+        else one memoised copy.  Class ids are global over all parts, so
+        one :meth:`_expand_class_hits` serves every position."""
+        lane_cls = self._sharded_lane_tables(sharded)[0]
+        per = pos.sub.n_parts
+        part = lane_cls[pos.m * per:(pos.m + 1) * per].flatten(0, 1)
+        if part.device == pos.dev:
+            return part
+        return self._lane_memo(pos.sub, lambda: part.to(pos.dev),
+                               "lane-slice")
+
+    def _bytes_launch(self, sub: base.ShardedPlan, data: torch.Tensor,
+                      starts: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+        """K2 over a sharded plan's folded blocks → ``(S, D, Q_live)``."""
+        stacked = sub.stacked()
+        mb, fb = sf.stream_filter_bytes(
+            data, starts, *self._folded(stacked),
+            max_depth=stacked.meta["max_depth"])
+        # (S, P·G, D, QB) → (S, D, P·G, QB) → (S, D, Q_live)
+        return self._sharded_lanes_to_queries(
+            mb.transpose(1, 2), fb.transpose(1, 2), sub)
+
     def filter_batch_sharded(self, batch: EventBatch, sharded, *,
                              mesh=None) -> FilterResult:
         """Events → ``(B, Q_live)`` through ONE K1 launch over the P·G
-        folded blocks."""
-        base._check_mesh(mesh)
+        folded blocks, or with ``mesh`` one per model position over its
+        slice of them."""
+        self._check_model_axis(sharded, mesh)
+        if not self._one_card(mesh):
+            return super().filter_batch_sharded(batch, sharded, mesh=mesh)
         sharded.wait()
         stacked = sharded.stacked()
         mb, fb = sf.stream_filter(self._events(batch), *self._folded(stacked),
@@ -633,68 +708,187 @@ class StreamingEngine(base.FilterEngine):
         """Events → bounded match list of global ids, ONE launch: K4 over
         the folded blocks (``"kernel-fused"``), or, for caps past the
         epilogue rule, K1's folded lanes compacted on the device
-        (``"lane-compact"``); an overflow recomputes densely."""
-        base._check_mesh(mesh)
-        sharded.wait()
+        (``"lane-compact"``, which runs on this card whatever ``mesh``
+        says, as the JAX package's does); an overflow recomputes densely.
+        With ``mesh`` K4 runs once per model position, each into a buffer
+        of its own, and ANY position past ``cap`` recomputes densely."""
+        self._check_model_axis(sharded, mesh)
         stacked = sharded.stacked()
-        events = self._events(batch)
+        sharded.wait()
         lane_cls, offsets, members = self._sharded_lane_tables(sharded)
         live_ids = sharded.live_ids()
         b = batch.batch_size
         cap = self.match_cap(b, len(live_ids), match_cap)
-        tables = self._folded(stacked)
         depth = stacked.meta["max_depth"]
-        if self._fused_sparse_ok(cap, stacked):
-            doc_ids = torch.arange(b, dtype=torch.int32,
-                                   device=events.device)[:, None]
-            buf, cnt = sf.stream_filter_sparse(
-                events, doc_ids, *tables, lane_cls.flatten(0, 1), cap=cap,
-                max_depth=depth)
-            bufs, n = _device_rows(buf, cnt, cap)
-            path = "kernel-fused"
-        else:
-            mb, fb = sf.stream_filter(events, *tables, max_depth=depth)
+        over = None
+
+        def dense_fallback():
+            return self.filter_batch_sharded(batch, sharded, mesh=mesh)
+
+        if not self._fused_sparse_ok(cap, stacked):
+            mb, fb = sf.stream_filter(self._events(batch),
+                                      *self._folded(stacked), max_depth=depth)
             *bufs, n = base._compact_matches(
                 mb.reshape(b, -1) != 0, fb.reshape(b, -1),
                 lane_cls.reshape(-1), cap)
             bufs, n = [x.cpu().numpy() for x in bufs], int(n)
             path = "lane-compact"
+        elif self._one_card(mesh):
+            events = self._events(batch)
+            doc_ids = torch.arange(b, dtype=torch.int32,
+                                   device=events.device)[:, None]
+            buf, cnt = sf.stream_filter_sparse(
+                events, doc_ids, *self._folded(stacked),
+                lane_cls.flatten(0, 1), cap=cap, max_depth=depth)
+            bufs, n = _device_rows(buf, cnt, cap)
+            path = "kernel-fused"
+        else:
+            events = self._prep_host(batch)[0]
+            doc_ids = np.arange(b, dtype=np.int32)[:, None]
+
+            def body(pos):
+                return sf.stream_filter_sparse(
+                    pos.stage(self, events), pos.stage(self, doc_ids),
+                    *self._folded(pos.sub.stacked()),
+                    self._lane_slice(sharded, pos), cap=cap, max_depth=depth)
+
+            bufs, n, over = base._position_rows(
+                self._positions(sharded, mesh, body)[0].wait(), cap)
+            path = "kernel-fused"
         return self._expand_class_hits(
             bufs, n, cap, offsets, members, batch_size=b,
             n_queries=len(live_ids), live_ids=live_ids, meta={"path": path},
-            dense_fallback=lambda: self.filter_batch_sharded(batch, sharded))
+            overflowed=over, dense_fallback=dense_fallback)
+
+    def filter_batch_sharded2d_sparse(self, batch: EventBatch, sharded, *,
+                                      mesh, match_cap: int | None = None
+                                      ) -> SparseResult:
+        """Sparse twin of the 2-D dispatch: K4 at every position, each
+        turning its ``"data"`` slice of the documents × ``"model"`` slice
+        of the parts into a bounded buffer of its own.  Document ids are
+        rows of the whole batch, and pad rows are ``-1``, which the
+        epilogue drops.  ANY position past ``cap`` sends the request to
+        the dense 2-D route; caps past the epilogue rule take the base
+        class's gathered dense result (``"base-fallback"``)."""
+        live_ids = sharded.live_ids()
+        b0 = batch.batch_size
+        cap = self.match_cap(b0, len(live_ids), match_cap)
+        stacked = sharded.stacked()
+        if not self._fused_sparse_ok(cap, stacked):
+            return self._mark_base_path(
+                super().filter_batch_sharded2d_sparse(
+                    batch, sharded, mesh=mesh, match_cap=match_cap))
+        n_data, _ = self._mesh_axes2d(mesh)
+        self._check_model_axis(sharded, mesh)
+        padded = batch.pad_batch_to(base._round_up(b0, n_data))
+        rows = padded.batch_size // n_data
+        events = self._prep_host(padded)[0]
+        # pad documents carry no events: name them -1 so the kernel drops
+        # them by construction rather than by accident
+        ids = np.arange(padded.batch_size, dtype=np.int32)
+        ids[b0:] = -1
+        sharded.wait()
+        lane_cls, offsets, members = self._sharded_lane_tables(sharded)
+        depth = stacked.meta["max_depth"]
+
+        def body(pos):
+            lo, hi = pos.d * rows, (pos.d + 1) * rows
+            return sf.stream_filter_sparse(
+                pos.stage(self, events[lo:hi]),
+                pos.stage(self, ids[lo:hi, None]),
+                *self._folded(pos.sub.stacked()),
+                self._lane_slice(sharded, pos), cap=cap, max_depth=depth)
+
+        fl, _ = self._positions(sharded, mesh, body, n_data=n_data)
+        bufs, n, over = base._position_rows(fl.wait(), cap)
+        return self._expand_class_hits(
+            bufs, n, cap, offsets, members, batch_size=b0,
+            n_queries=len(live_ids), live_ids=live_ids,
+            meta={"path": "kernel-fused"}, overflowed=over,
+            dense_fallback=lambda: self.filter_batch_sharded2d(
+                batch, sharded, mesh=mesh))
 
     def filter_bytes_sharded(self, bb: ByteBatch, sharded, *,
                              bucket: int | None = None,
                              mesh=None) -> FilterResult:
         """Raw bytes → ``(B, Q_live)`` in ONE K2 launch over the folded
-        blocks (segment-packed under the ``pack=`` option); with
-        ``fuse=False``, the device parse then the folded K1."""
-        base._check_mesh(mesh)
+        blocks (segment-packed under the ``pack=`` option), or with
+        ``mesh`` one per model position; with ``fuse=False``, the device
+        parse then the folded K1."""
         if not self._fused_bytes_on():
-            return super().filter_bytes_sharded(bb, sharded, bucket=bucket)
-        sharded.wait()
-        stacked = sharded.stacked()
+            return super().filter_bytes_sharded(bb, sharded, bucket=bucket,
+                                                mesh=mesh)
+        self._check_model_axis(sharded, mesh)
         data, starts, sp = self._bytes_prep(bb, None)
-        mb, fb = sf.stream_filter_bytes(
-            self.to_device(data), self.to_device(starts),
-            *self._folded(stacked), max_depth=stacked.meta["max_depth"])
-        # (S, P·G, D, QB) → (S, D, P·G, QB) → (S, D, Q_live)
-        m, f = (x.cpu().numpy() for x in self._sharded_lanes_to_queries(
-            mb.transpose(1, 2), fb.transpose(1, 2), sharded))
+        if self._one_card(mesh):
+            sharded.wait()
+            m, f = (x.cpu().numpy() for x in self._bytes_launch(
+                sharded, self.to_device(data), self.to_device(starts)))
+        else:
+            m, f = self._model_verdicts(
+                sharded, mesh, lambda pos: self._bytes_launch(
+                    pos.sub, pos.stage(self, data), pos.stage(self, starts)))
         if sp is None:
             return FilterResult(m[:, 0], f[:, 0])
         return FilterResult(*sp.scatter(m, f, NO_MATCH))
+
+    def dispatch_bytes_sharded2d(self, bb, sharded, *,
+                                 bucket: int | None = None, mesh,
+                                 n_events: int | None = None):
+        """2-D (data × model) bytes route: K2 at every position, each
+        streaming its ``"data"`` slice of the raw segments through its
+        ``"model"`` slice of the folded blocks, bytes in, lanes out, with
+        no event tensor anywhere.  Unpacked, the batch is padded to the
+        data axis with zero-byte rows; with ``pack=`` the packed segments
+        are padded with inert ones *after* packing
+        (:meth:`SegmentPack.pad_segments_to`).  ``n_events`` is accepted
+        for the signature: K2 has no compacted event axis.  ``fuse=False``
+        parses each slice with K5 and runs K1 (the base class's route)."""
+        if not self._fused_bytes_on():
+            return super().dispatch_bytes_sharded2d(
+                bb, sharded, bucket=bucket, mesh=mesh, n_events=n_events)
+        n_data, n_model = self._mesh_axes2d(mesh)
+        self._check_model_axis(sharded, mesh)
+        placed = bb if isinstance(bb, PlacedBytes) else None
+        host = placed.host if placed is not None else bb
+        b0 = host.batch_size
+        if bool(self.options.get("pack", False)):
+            sp = pack_segments(
+                host, target_len=int(self.plan_.meta["segment_target"]))
+            sp = sp.pad_segments_to(base._round_up(sp.n_segments, n_data))
+            data, starts, placed = sp.data, sp.starts, None
+        else:
+            sp = None
+            padded = host.pad_batch_to(base._round_up(b0, n_data))
+            data = padded.data
+            starts = np.full((padded.batch_size, 2), SEG_SENTINEL, np.int32)
+            starts[:, 0] = 0
+        rows = data.shape[0] // n_data
+
+        def body(pos):
+            return self._bytes_launch(
+                pos.sub, self._stage_rows(pos, placed, data, rows),
+                pos.stage(self, starts[pos.d * rows:(pos.d + 1) * rows]))
+
+        fl, _ = self._positions(sharded, mesh, body, n_data=n_data)
+        fl.keep(placed)
+
+        def finish(m, f):
+            if sp is None:
+                return FilterResult(m[:b0, 0], f[:b0, 0])
+            return FilterResult(*sp.scatter(m, f, NO_MATCH))
+
+        return self._materializer2d(fl, sharded, n_data, n_model, finish)
 
     def filter_bytes_sharded_sparse(self, bb: ByteBatch, sharded, *,
                                     bucket: int | None = None, mesh=None,
                                     match_cap: int | None = None
                                     ) -> SparseResult:
         """Raw bytes → bounded match list of global ids in ONE K3 launch
-        over the folded blocks; ``fuse=False`` and caps past the epilogue
-        rule parse on the device and take
+        over the folded blocks, or with ``mesh`` one per model position,
+        each into a buffer of its own; ``fuse=False`` and caps past the
+        epilogue rule parse on the device and take
         :meth:`filter_batch_sharded_sparse`."""
-        base._check_mesh(mesh)
         live_ids = sharded.live_ids()
         b = bb.batch_size
         cap = self.match_cap(b, len(live_ids), match_cap)
@@ -702,23 +896,37 @@ class StreamingEngine(base.FilterEngine):
         if not (self._fused_bytes_on()
                 and self._fused_sparse_ok(cap, stacked)):
             return super().filter_bytes_sharded_sparse(
-                bb, sharded, bucket=bucket, match_cap=match_cap)
-        sharded.wait()
+                bb, sharded, bucket=bucket, mesh=mesh, match_cap=match_cap)
+        self._check_model_axis(sharded, mesh)
         data, starts, spk = self._bytes_prep(bb, None)
         doc_map = (spk.doc_ids if spk is not None
                    else np.arange(b, dtype=np.int32)[:, None])
+        sharded.wait()
         lane_cls, offsets, members = self._sharded_lane_tables(sharded)
-        buf, cnt = sf.stream_filter_bytes_sparse(
-            self.to_device(data), self.to_device(starts),
-            self.to_device(doc_map), *self._folded(stacked),
-            lane_cls.flatten(0, 1), cap=cap,
-            max_depth=stacked.meta["max_depth"])
-        bufs, n = _device_rows(buf, cnt, cap)
+        depth = stacked.meta["max_depth"]
+        over = None
+        if self._one_card(mesh):
+            buf, cnt = sf.stream_filter_bytes_sparse(
+                self.to_device(data), self.to_device(starts),
+                self.to_device(doc_map), *self._folded(stacked),
+                lane_cls.flatten(0, 1), cap=cap, max_depth=depth)
+            bufs, n = _device_rows(buf, cnt, cap)
+        else:
+            def body(pos):
+                return sf.stream_filter_bytes_sparse(
+                    pos.stage(self, data), pos.stage(self, starts),
+                    pos.stage(self, doc_map),
+                    *self._folded(pos.sub.stacked()),
+                    self._lane_slice(sharded, pos), cap=cap, max_depth=depth)
+
+            bufs, n, over = base._position_rows(
+                self._positions(sharded, mesh, body)[0].wait(), cap)
         return self._expand_class_hits(
             bufs, n, cap, offsets, members, batch_size=b,
             n_queries=len(live_ids), live_ids=live_ids,
             meta={"path": "kernel-fused", "launch": "bytes"},
-            dense_fallback=lambda: self.filter_bytes_sharded(bb, sharded))
+            overflowed=over, dense_fallback=lambda: self.filter_bytes_sharded(
+                bb, sharded, mesh=mesh))
 
     def filter_documents_batched(self, kind: np.ndarray,
                                  tag: np.ndarray) -> FilterResult:

@@ -24,7 +24,7 @@ tags 5 bytes ``</xy>`` where ``x``/``y`` come from the 64-symbol alphabet in
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Iterator, Sequence
 
 import numpy as np
@@ -321,6 +321,48 @@ class EventBatch:
             self.n_events,
         )
 
+    def pad_batch_to(self, b: int) -> "EventBatch":
+        """Grow the *batch* axis to ``b`` with inert all-PAD documents.
+
+        The 2-D mesh path (``filter_batch_sharded2d``) splits the batch
+        axis over the mesh ``"data"`` axis in equal slices; pad documents
+        carry zero events, so no engine can report a match for them, and
+        callers slice the pad rows back off the result.  A device batch
+        is padded on its device.
+        """
+        cur = self.batch_size
+        if b < cur:
+            raise ValueError(f"cannot pad batch of {cur} docs into {b}")
+        if b == cur:
+            return self
+        extra, n = b - cur, self.length
+        if self.is_device:
+            dev = self.kind.device
+
+            def full(shape, value, dtype):
+                return torch.full(shape, value, dtype=dtype, device=dev)
+
+            cat = torch.cat
+            i8, i32, boolean = torch.int8, torch.int32, torch.bool
+        else:
+            full, cat = np.full, np.concatenate
+            i8, i32, boolean = np.int8, np.int32, bool
+        return EventBatch(
+            cat([self.kind, full((extra, n), PAD, i8)]),
+            cat([self.tag_id, full((extra, n), -1, i32)]),
+            cat([self.depth, full((extra, n), 0, i32)]),
+            cat([self.parent, full((extra, n), -1, i32)]),
+            cat([self.valid, full((extra, n), False, boolean)]),
+            cat([self.n_events, full((extra,), 0, i32)]),
+        )
+
+    def rows(self, lo: int, hi: int) -> "EventBatch":
+        """Documents ``lo:hi`` as a batch of their own (views, no copy):
+        one ``"data"`` position's slice of a batch."""
+        return EventBatch(*(a[lo:hi] for a in (
+            self.kind, self.tag_id, self.depth, self.parent, self.valid,
+            self.n_events)))
+
     # ------------------------------------------------------------ recovery
     def stream(self, i: int) -> "EventStream":
         """Document ``i`` of a host batch as an un-padded :class:`EventStream`."""
@@ -426,6 +468,56 @@ class ByteBatch:
             [encode_bytes(d, text_fill=text_fill) for d in docs],
             bucket=bucket)
 
+    def pad_batch_to(self, b: int) -> "ByteBatch":
+        """Grow the batch axis to ``b`` zero-byte rows (see
+        :meth:`EventBatch.pad_batch_to`): byte 0 decodes to no events, so
+        pad rows are inert by construction."""
+        cur = self.batch_size
+        if b < cur:
+            raise ValueError(f"cannot pad batch of {cur} docs into {b}")
+        if b == cur:
+            return self
+        extra = b - cur
+        return ByteBatch(
+            np.concatenate([self.data,
+                            np.zeros((extra, self.length), np.uint8)]),
+            np.concatenate([self.n_bytes, np.zeros(extra, np.int32)]))
+
+    def device_put(self, mesh, axis: str = "data") -> "PlacedBytes":
+        """Stage the batch over a mesh: its rows split over ``axis``.
+
+        The port's counterpart of the JAX package's sharding-aware
+        ``device_put``: the batch is padded to a multiple of the axis size
+        (equal slices), and every position of the mesh gets its slice of
+        the rows on its device, copied from pinned memory with
+        ``non_blocking=True`` on the position's stream
+        (:meth:`~repro_torch.launch.mesh.FilterMesh.use`), so the copy of
+        batch *k+1* overlaps the filter still running on batch *k*.
+        ``n_bytes`` stays on the host.  The 2-D dispatch
+        (:meth:`FilterEngine.dispatch_bytes_sharded2d`) reads the copies.
+        """
+        shape = dict(mesh.shape)
+        n = shape.get(axis, 1)
+        bb = self.pad_batch_to(bucket_length(self.batch_size, n))
+        rows = bb.batch_size // n
+        at = mesh.axis_names.index(axis) if axis in shape else None
+        placed = PlacedBytes(bb, mesh)
+        for idx in mesh.positions():
+            d = 0 if at is None else idx[at]
+            host = torch.from_numpy(bb.data[d * rows:(d + 1) * rows])
+            dev = mesh.device(idx)
+            with mesh.use(idx):
+                if dev.type == "cuda":
+                    pinned = host.pin_memory()
+                    placed.pinned.append(pinned)
+                    placed.rows[idx] = pinned.to(dev, non_blocking=True)
+                    placed.ready[idx] = torch.cuda.Event()
+                    placed.ready[idx].record()
+                else:
+                    placed.rows[idx] = host.to(dev)
+                    placed.ready[idx] = None
+        return placed
+
     # ----------------------------------------------------------- recovery
     def buffer(self, i: int) -> bytes:
         """Document ``i`` as its un-padded byte string."""
@@ -440,6 +532,36 @@ class ByteBatch:
     def nbytes_total(self) -> int:
         """True payload bytes across the batch (MB/s accounting)."""
         return int(np.asarray(self.n_bytes).sum())
+
+
+@dataclass
+class PlacedBytes:
+    """A :class:`ByteBatch` staged over a mesh (:meth:`ByteBatch.
+    device_put`): ``host`` is the batch padded to the data axis, and
+    ``rows[idx]`` each position's slice of its rows on the position's
+    device, with an event after its copy in ``ready[idx]`` (``None`` off
+    the card) and the pinned host slices kept in ``pinned`` until the
+    batch is dropped."""
+
+    host: ByteBatch
+    mesh: object
+    rows: dict = field(default_factory=dict)
+    ready: dict = field(default_factory=dict)
+    pinned: list = field(default_factory=list)
+
+    @property
+    def batch_size(self) -> int:
+        return self.host.batch_size
+
+    def take(self, idx) -> torch.Tensor:
+        """Position ``idx``'s rows, for a launch on the current stream:
+        the stream waits for their copy, and is recorded as their user."""
+        t, event = self.rows[idx], self.ready[idx]
+        if event is not None:
+            stream = torch.cuda.current_stream(t.device)
+            stream.wait_event(event)
+            t.record_stream(stream)
+        return t
 
 
 # ------------------------------------------------------------ segment packing
@@ -499,6 +621,29 @@ class SegmentPack:
     @property
     def docs_per_segment(self) -> int:
         return int(self.doc_ids.shape[1])
+
+    def pad_segments_to(self, s: int) -> "SegmentPack":
+        """Grow the segment axis with inert all-sentinel segments (the 2-D
+        mesh's ``"data"`` axis takes equal slices, cf.
+        :meth:`ByteBatch.pad_batch_to`); their slots name no document."""
+        cur = self.n_segments
+        if s < cur:
+            raise ValueError(f"cannot pad {cur} segments into {s}")
+        if s == cur:
+            return self
+        extra = s - cur
+        starts = np.full((extra, self.starts.shape[1]), SEG_SENTINEL,
+                         np.int32)
+        starts[:, 0] = 0
+        return SegmentPack(
+            np.concatenate([self.data,
+                            np.zeros((extra, self.seg_len), np.uint8)]),
+            np.concatenate([self.starts, starts]),
+            np.concatenate([self.doc_ids,
+                            np.full((extra, self.docs_per_segment), -1,
+                                    np.int32)]),
+            self.batch_size,
+            np.concatenate([self.n_bytes, np.zeros(extra, np.int32)]))
 
     def scatter(self, matched, first, no_match: int
                 ) -> tuple[np.ndarray, np.ndarray]:

@@ -1,6 +1,6 @@
 """Pub-sub content routing as a pipeline stage, on the port's engines.
 
-Counterpart of ``src/repro/data/filter_stage.py`` on one card: a stream of
+Counterpart of ``src/repro/data/filter_stage.py``: a stream of
 documents is matched against standing profiles and each document is
 routed to every data shard that holds a matching subscription.
 :meth:`FilterStage.route` takes host-parsed event
@@ -17,16 +17,22 @@ new :class:`PlanEpoch`; a batch pinned to an epoch filters and fans out
 with that epoch's engine and gid table even after a later commit, which
 is what the serve loop's hot swap rests on (:mod:`repro_torch.serve`).
 ``query_shards > 1`` partitions the subscriptions into that many parts
-(:meth:`FilterEngine.plan_sharded`), all run in one launch on the card;
+(:meth:`FilterEngine.plan_sharded`), all run in one launch on one card;
 a subscribe then recompiles one part, an unsubscribe only tombstones,
-and :meth:`FilterStage.maybe_rebalance` evens the parts' load.  Data
-sharding (``data_shards > 1``, the 2-D mesh) is ROADMAP queue 1 item 13;
-asking for it raises.
+and :meth:`FilterStage.maybe_rebalance` evens the parts' load.
+``data_shards > 1`` also spreads the documents: the stage filters
+through the 2-D ``("data", "model")`` mesh
+(:class:`~repro_torch.launch.mesh.FilterMesh`, built by
+:func:`~repro_torch.launch.mesh.make_filter_mesh` when none is given),
+one launch per mesh position, and :meth:`FilterStage.
+route_bytes_pipelined` keeps up to ``pipeline_depth`` batches in flight
+on it, staging batch *k+1* while batch *k* filters.
 """
 from __future__ import annotations
 
 import threading
 import time
+from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Iterable, Iterator, Sequence
 
@@ -99,11 +105,6 @@ class PendingPlan:
     build_s: float = 0.0
 
 
-#: what the stage cannot do yet, and the ROADMAP item that ports it
-_NOT_PORTED_SHARDING = ("data_shards > 1 is not ported yet: the 2-D "
-                        "(data x model) paths are ROADMAP queue 1 item 13")
-
-
 @dataclass
 class FilterStage:
     """Standing-profile filter + router over a registered port engine.
@@ -126,6 +127,17 @@ class FilterStage:
     with and without query sharding.  Churn then recompiles only the
     least-loaded part (:meth:`subscribe`) or tombstones
     (:meth:`unsubscribe`); unsharded, it recompiles the whole engine.
+
+    ``data_shards > 1`` filters through the 2-D (data × model) path
+    (:meth:`FilterEngine.filter_batch_sharded2d`): documents spread over
+    the mesh's ``"data"`` axis while each position keeps its slice of the
+    parts, the paper's §3.5 replication in both dimensions.  ``mesh`` is
+    built when sharding asks for one and none is given
+    (:func:`~repro_torch.launch.mesh.make_filter_mesh` on ``device``);
+    one card places a 1 × 1 mesh, and a wider grid over one device is a
+    :class:`~repro_torch.launch.mesh.FilterMesh` with the device
+    repeated.  The bytes path gets a pipelined route on top:
+    :meth:`route_bytes_pipelined`.
     """
 
     profiles: Sequence[Query]
@@ -138,9 +150,11 @@ class FilterStage:
     byte_bucket: int = 1024
     query_shards: int = 1
     data_shards: int = 1
-    #: in-flight depth of :meth:`route_bytes_pipelined`, as in the JAX
-    #: package (the port routes synchronously at any depth)
+    #: in-flight depth of :meth:`route_bytes_pipelined` — how many
+    #: dispatched-but-unmaterialized batches it keeps (2 = the classic
+    #: double buffer)
     pipeline_depth: int = 2
+    mesh: Any = None
     device: str = "cuda"
     shard_of_profile: np.ndarray = field(default=None)  # type: ignore
     stats: dict = field(default_factory=dict)
@@ -155,8 +169,6 @@ class FilterStage:
     engine_options: dict = field(default_factory=dict)
 
     def __post_init__(self) -> None:
-        if self.data_shards > 1:
-            raise NotImplementedError(_NOT_PORTED_SHARDING)
         if isinstance(self.profiles[0], str):
             self.profiles = [parse(p) for p in self.profiles]
         # live subscription set, keyed by stable global query id; ids are
@@ -168,8 +180,18 @@ class FilterStage:
                                         shared=True)
         self._eng = self._make_engine(self.nfa)
         self._churn_ops = 0
-        self.sharded_ = (self._eng.plan_sharded(self.query_shards)
-                         if self.query_shards > 1 else None)
+        sharding = self.query_shards > 1 or self.data_shards > 1
+        if sharding and self.mesh is None:
+            from ..launch.mesh import make_filter_mesh
+
+            # n_parts caps the model axis at the part count (a monolithic
+            # plan gets a 1-wide model axis, every device on "data")
+            self.mesh = make_filter_mesh(max(1, self.query_shards),
+                                         data_shards=self.data_shards,
+                                         device=self.device)
+        # the data axis needs a sharded plan even with one query part
+        self.sharded_ = (self._eng.plan_sharded(max(1, self.query_shards))
+                         if sharding else None)
         if self.shard_of_profile is None:
             self.shard_of_profile = (
                 np.arange(len(self.profiles)) % self.n_shards).astype(np.int32)
@@ -391,9 +413,14 @@ class FilterStage:
         batch = EventBatch.from_streams(docs, bucket=self.bucket)
         t0 = time.perf_counter()
         eng.wait_plan()
-        if sharded is not None:
+        if self.data_shards > 1:
+            res = (eng.filter_batch_sharded2d_sparse if self.sparse
+                   else eng.filter_batch_sharded2d)(batch, sharded,
+                                                    mesh=self.mesh)
+        elif sharded is not None:
             res = (eng.filter_batch_sharded_sparse if self.sparse
-                   else eng.filter_batch_sharded)(batch, sharded)
+                   else eng.filter_batch_sharded)(batch, sharded,
+                                                  mesh=self.mesh)
         else:
             res = (eng.filter_batch_sparse if self.sparse
                    else eng.filter_batch)(batch)
@@ -408,7 +435,9 @@ class FilterStage:
                           ) -> FilterResult | SparseResult:
         """Device-ingest batched path: raw wire bytes in, verdicts out,
         decoded on the device by the engine's ``filter_bytes`` (its
-        sharded twin when the stage is query-sharded).  ``epoch`` pins the
+        sharded twin when the stage is query-sharded, its 2-D twin with a
+        data axis, whose sparse form is the gathered dense result,
+        sparsified: ``path="dense-2d"``).  ``epoch`` pins the
         batch to a :meth:`plan_epoch` snapshot so a concurrent plan swap
         cannot tear engine/plan/gids mid-batch; the current stream waits
         for that plan's tables first."""
@@ -417,10 +446,17 @@ class FilterStage:
         bb = ByteBatch.from_buffers(bufs, bucket=self.byte_bucket)
         t0 = time.perf_counter()
         eng.wait_plan()
-        if sharded is not None:
+        if self.data_shards > 1:
+            res = eng.filter_bytes_sharded2d(bb, sharded, bucket=self.bucket,
+                                             mesh=self.mesh)
+            if self.sparse:
+                res = res.sparsify(sharded.live_ids())
+                res.meta["path"] = "dense-2d"
+        elif sharded is not None:
             res = (eng.filter_bytes_sharded_sparse if self.sparse
                    else eng.filter_bytes_sharded)(bb, sharded,
-                                                  bucket=self.bucket)
+                                                  bucket=self.bucket,
+                                                  mesh=self.mesh)
         else:
             res = (eng.filter_bytes_sparse if self.sparse
                    else eng.filter_bytes)(bb, bucket=self.bucket)
@@ -484,16 +520,89 @@ class FilterStage:
             yield self._fan_out(res, [len(b) for b in batch], base)
             base += len(batch)
 
+    # --------------------------------------------- the pipelined route
+    def _stage_in(self, bufs: list[bytes]):
+        """Host-side staging of one batch: pack, take the event bound (a
+        host scan, done before placement so the device copies are never
+        read back), then stage the rows over the mesh's ``"data"`` axis
+        (:meth:`ByteBatch.device_put`: pinned, ``non_blocking`` copies on
+        the positions' streams).  ``put_seconds`` times the staging's
+        dispatch, not the transfer, which overlaps the batches in
+        flight."""
+        bb = ByteBatch.from_buffers(bufs, bucket=self.byte_bucket)
+        n_events = bb.event_bound(bucket=self.bucket)
+        t0 = time.perf_counter()
+        placed = bb.device_put(self.mesh)
+        self.stats["put_seconds"] += time.perf_counter() - t0
+        return bufs, bb, placed, n_events
+
+    def _dispatch_byte_batch(self, bufs: list[bytes]):
+        """Stage one raw-byte batch (exactly once — ``put_seconds`` counts
+        each batch's staging a single time) and launch the 2-D bytes
+        filter on the positions of the mesh, against a :meth:`plan_epoch`
+        snapshot.  Returns the in-flight entry the pipelined route
+        materializes later."""
+        ep = self.plan_epoch()
+        bufs, bb, placed, n_events = self._stage_in(bufs)
+        t0 = time.perf_counter()
+        ep.eng.wait_plan()
+        materialize = ep.eng.dispatch_bytes_sharded2d(
+            placed, ep.sharded, mesh=self.mesh, n_events=n_events)
+        return bufs, bb, materialize, t0, ep
+
+    def _materialize_routed(self, entry, base: int) -> list[RoutedDocument]:
+        """Wait for one in-flight batch's verdicts, account, fan out with
+        the gids of the epoch it was filtered under."""
+        bufs, bb, materialize, t0, ep = entry
+        res = materialize()
+        # slice off the data-axis pad rows before accounting and fan-out
+        res = FilterResult(res.matched[:len(bufs)],
+                           res.first_event[:len(bufs)])
+        self._record(res, bb.batch_size, bb.nbytes_total(),
+                     time.perf_counter() - t0)
+        return self._fan_out(res, [len(b) for b in bufs], base, gids=ep.gids)
+
     def route_bytes_pipelined(self, payloads: Iterable[bytes], *,
                               depth: int | None = None
                               ) -> Iterator[list[RoutedDocument]]:
-        """K-deep pipelined twin of :meth:`route_bytes`.  In the JAX
-        package it overlaps batches on the 2-D mesh (ROADMAP queue 1 item
-        13); the port has no mesh, so it routes exactly as
-        :meth:`route_bytes` at any ``depth``, sharded or not.  Batches
-        overlap on the card in the serve loop
-        (:class:`repro_torch.serve.ServeLoop`), one stream per worker."""
-        yield from self.route_bytes(payloads)
+        """K-deep pipelined twin of :meth:`route_bytes` on the mesh: while
+        batch *k* filters on the card, up to ``depth - 1`` successor
+        batches are already packed, their copies queued and their launches
+        dispatched.
+
+        Per batch: (1) stage over the mesh and dispatch the 2-D bytes
+        filter (:meth:`FilterEngine.dispatch_bytes_sharded2d`, which
+        returns a materializer at once); (2) once ``depth`` batches are in
+        flight, wait on the *oldest* one's position events and fan out
+        (FIFO, so the routed order is :meth:`route_bytes`'s).  ``depth``
+        defaults to :attr:`pipeline_depth`.  Each batch is staged exactly
+        once, so ``put_seconds`` counts it once at any depth, and
+        ``overlapped_batches`` counts the batches staged while a
+        predecessor was still in flight; verdicts are dense.  Routes as
+        :meth:`route_bytes` when the stage has no mesh to overlap on.
+        """
+        if self.mesh is None or self.sharded_ is None:
+            yield from self.route_bytes(payloads)
+            return
+        k = max(1, self.pipeline_depth if depth is None else depth)
+        # only the k batches in flight are held: an unbounded payload
+        # stream yields verdicts batch by batch, as route_bytes does
+        inflight: deque = deque()
+        base = 0
+        for bufs in self._chunks(payloads):
+            if inflight:
+                # a predecessor is still in flight while this batch stages:
+                # the overlap the pipeline exists for
+                self.stats["overlapped_batches"] += 1
+            inflight.append(self._dispatch_byte_batch(bufs))
+            if len(inflight) >= k:
+                entry = inflight.popleft()
+                yield self._materialize_routed(entry, base)
+                base += len(entry[0])
+        while inflight:
+            entry = inflight.popleft()
+            yield self._materialize_routed(entry, base)
+            base += len(entry[0])
 
     def _fan_out(self, results: FilterResult | SparseResult,
                  nbytes: list[int], base: int = 0, *,
@@ -537,20 +646,31 @@ class FilterStage:
 
     def throughput(self) -> dict:
         """Cumulative filtering throughput over everything routed so far,
-        with the JAX package's keys; one device, so both mesh axes are 1
-        and every query part is on the one model shard."""
+        with the JAX package's keys.
+
+        Per-axis view: ``mesh_data`` / ``mesh_model`` are the *placed*
+        mesh's axis sizes (a request shrinks to what the host can place,
+        :func:`~repro_torch.launch.mesh.make_filter_mesh`);
+        ``docs_per_s_per_data_shard`` is each data row's share of the
+        stream, and ``queries_per_model_shard`` each model position's
+        slice of the subscription set.
+        """
         s = self.stats
         dt = max(s["seconds"], 1e-9)
+        axes = dict(self.mesh.shape) if self.mesh is not None else {}
+        mesh_data = axes.get("data", 1)
+        mesh_model = axes.get("model", 1)
         return {
             "engine": self.engine,
             "query_shards": self.query_shards,
             "data_shards": self.data_shards,
-            "mesh_data": 1,
-            "mesh_model": 1,
+            "mesh_data": mesh_data,
+            "mesh_model": mesh_model,
             "docs": s["docs"],
             "docs_per_s": s["docs"] / dt,
-            "docs_per_s_per_data_shard": s["docs"] / dt,
-            "queries_per_model_shard": len(self._gids),
+            "docs_per_s_per_data_shard": s["docs"] / dt / mesh_data,
+            "queries_per_model_shard": -(-len(self._gids)
+                                         // max(mesh_model, 1)),
             "mb_per_s": s["bytes"] / 1e6 / dt,
             "put_s": s["put_seconds"],
             "overlapped_batches": s["overlapped_batches"],

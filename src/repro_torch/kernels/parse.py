@@ -114,6 +114,18 @@ def parse_batch(bb: ByteBatch, *, n_events: int | None = None,
     if n_events is None:
         n_events = bucket_length(bb.max_events, bucket)
     data = torch.from_numpy(np.ascontiguousarray(bb.data)).to(device)
+    return parse_tensor(data, n_events=n_events, max_depth=max_depth,
+                        check_depth=check_depth)
+
+
+def parse_tensor(data: torch.Tensor, *, n_events: int,
+                 max_depth: int = DEFAULT_MAX_DEPTH,
+                 check_depth: bool = True, first_doc: int = 0
+                 ) -> EventBatch:
+    """:func:`parse_batch` of a ``(B, L)`` uint8 tensor already on its
+    device (a mesh position's slice of a batch, staged on its stream).
+    A :class:`DepthOverflow` names documents as rows of the whole batch:
+    ``first_doc`` is this slice's first row there."""
     kind, tag, depth, parent, valid, n_per_doc = parse_arrays(
         data, n_events=n_events, max_depth=max_depth)
     if check_depth:
@@ -121,7 +133,8 @@ def parse_batch(bb: ByteBatch, *, n_events: int | None = None,
             else np.zeros(depth.shape[0], np.int32)
         dmax = int(per_doc.max(initial=0))
         if dmax > max_depth:
-            bad = [int(i) for i in (per_doc > max_depth).nonzero()[0]]
+            bad = [int(i) + first_doc
+                   for i in (per_doc > max_depth).nonzero()[0]]
             raise DepthOverflow(
                 f"document nesting depth {dmax} exceeds max_depth="
                 f"{max_depth} (documents {bad}); re-parse with "

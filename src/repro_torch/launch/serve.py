@@ -17,10 +17,12 @@ subscribers").
   :class:`~repro_torch.serve.loop.ServeLoop` on a seeded arrival trace,
   with its SLO summary.
 
-The JAX package's CLI ``main`` builds ``ServeEngine`` model replicas and
-generates with them; the LM substrate is ROADMAP queue 1 item 14, so
-``main`` comes with it.  ``data_shards > 1`` (the 2-D mesh) raises
-through the stage (item 13).
+``data_shards > 1`` builds the stage on a 2-D ``("data", "model")`` mesh
+(:func:`~repro_torch.launch.mesh.make_filter_mesh` on ``device``), and
+:func:`route_requests` then routes bytes through the stage's pipelined
+route.  The JAX package's CLI ``main`` builds ``ServeEngine`` model
+replicas and generates with them; the LM substrate is ROADMAP queue 1
+item 14, so ``main`` comes with it.
 """
 from __future__ import annotations
 
@@ -58,7 +60,8 @@ def route_requests(stage: FilterStage, payloads, *, ingest: str = "events",
                    raw=None) -> list[list[int]]:
     """Fan requests out to replica queues through the stage: ``payloads``
     (event streams) with ``ingest="events"``, else the ``raw`` wire
-    payloads, parsed on the device."""
+    payloads, parsed on the device — through the pipelined route when the
+    stage has a data axis."""
     queues: list[list[int]] = [[] for _ in range(stage.n_shards)]
     if ingest == "bytes":
         routed_batches = (stage.route_bytes_pipelined(raw)

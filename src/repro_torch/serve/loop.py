@@ -3,8 +3,10 @@ batching, K-deep in-flight dispatch on CUDA streams, latency SLOs.
 
 Counterpart of ``src/repro/serve/loop.py``, with the same constructor,
 counters and semantics, over the port's :class:`~repro_torch.data.
-filter_stage.FilterStage`, unsharded or query-sharded (``data_shards =
-1``: the 2-D mesh is not ported).
+filter_stage.FilterStage`: unsharded, query-sharded, or 2-D over a mesh
+(``data_shards > 1``), whose positions a worker launches on from its own
+thread, each on a stream of that thread's (:meth:`~repro_torch.launch.
+mesh.FilterMesh.use`).
 
 Dataflow (one :class:`ServeLoop` instance)::
 

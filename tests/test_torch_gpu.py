@@ -19,8 +19,10 @@ its state axis (past shared memory too), and a sharded subscribe made on
 one stream while a batch of the old plan runs on another.  The plan
 cache: a hit's tables on the card equal a compile's, and a hot swap whose
 rebuild reads the cache runs with batches in flight.  The public wrappers
-of ``kernels.ops`` and a tiny ``autotune.search`` on the card.  The file
-imports nothing of JAX, so it runs where only the port is installed.
+of ``kernels.ops`` and a tiny ``autotune.search`` on the card.  The mesh:
+a 2 x 2 and a 1 x 4 grid of positions on the one card, one launch a
+position, each on a stream of its own.  The file imports nothing of JAX,
+so it runs where only the port is installed.
 """
 import threading
 import time
@@ -933,3 +935,85 @@ def test_autotune_search_on_card_tiny_grid(cuda, tmp_path):
     got, want = eng.filter_bytes(bb, pack=True), plain.filter_bytes(bb)
     np.testing.assert_array_equal(got.matched, want.matched)
     np.testing.assert_array_equal(got.first_event, want.first_event)
+
+
+# ------------------------------------------------------------- the mesh
+def card_mesh(cuda, data, model):
+    from repro_torch.launch.mesh import FilterMesh
+
+    return FilterMesh([[cuda] * model for _ in range(data)])
+
+
+@pytest.mark.parametrize("kw", [{}, {"sparse": True},
+                                {"engine_options": {"pack": True}},
+                                {"engine": "wavefront",
+                                 "engine_options": {"use_kernel": True}}],
+                         ids=["dense", "sparse", "packed", "wavefront-K6"])
+def test_2d_stage_on_card_launches_per_position(cuda, kw):
+    """A 2 x 2 mesh over the one card: each request launches its kernel
+    at every position (four streams), the routes and the pipelined routes
+    equal the unsharded stage's, and both mesh= paths of the 1-D filters
+    equal the one-card run."""
+    from repro_torch.data.filter_stage import FilterStage
+    from repro_torch.kernels import nfa_transition as nt
+
+    dtd, d, qs, raw = serve_workload(n_docs=16)
+    kw = dict(kw)
+    engine = kw.pop("engine", "streaming")
+
+    def stage(**more):
+        return FilterStage(qs, d, n_shards=2, keep_unmatched=True,
+                           batch_size=8, device=str(cuda), engine=engine,
+                           **kw, **more)
+
+    want = stage_routes(stage(), raw)
+    two_d = stage(query_shards=2, data_shards=2, mesh=card_mesh(cuda, 2, 2))
+    kernel = (nt.nfa_transition if engine == "wavefront"
+              else sf.stream_filter_bytes)
+    before = kernel.launches
+    assert stage_routes(two_d, raw) == want
+    torch.cuda.synchronize()
+    assert kernel.launches - before >= 4 * 2        # 2 requests x 4
+    if engine == "streaming":
+        assert kernel.launches - before == 4 * 2
+        got = {(r.doc_index, r.shard): tuple(int(x) for x in
+                                             r.matched_profiles)
+               for b in two_d.route_bytes_pipelined(raw, depth=3)
+               for r in b}
+        assert got == want and two_d.stats["overlapped_batches"] == 1
+        events = sf.stream_filter_sparse if kw.get("sparse") \
+            else sf.stream_filter
+        before = events.launches
+        streams = [gen_document(dtd, target_nodes=40, seed=i)
+                   for i in range(8)]
+        list(two_d.route(streams))
+        torch.cuda.synchronize()
+        assert events.launches - before == 4
+
+
+def test_mesh_1d_filters_on_card_equal_one_card(cuda):
+    """``mesh=`` on every sharded filter over a 1 x 4 grid of the card:
+    one launch a model position, equal to the one-card run."""
+    _, d, qs, raw = serve_workload(n_docs=8)
+    eng = engines.create("streaming", compile_queries(qs, d, shared=True),
+                         dictionary=d, device=cuda)
+    sp = eng.plan_sharded(4)
+    mesh = card_mesh(cuda, 1, 4)
+    bb = ByteBatch.from_buffers(raw, bucket=1024)
+    from repro_torch.kernels import parse as parse_mod
+    batch = parse_mod.parse_batch(bb, device=cuda)
+    for method, arg, kernel in (
+            ("filter_batch_sharded", batch, sf.stream_filter),
+            ("filter_batch_sharded_sparse", batch, sf.stream_filter_sparse),
+            ("filter_bytes_sharded", bb, sf.stream_filter_bytes),
+            ("filter_bytes_sharded_sparse", bb,
+             sf.stream_filter_bytes_sparse)):
+        one = getattr(eng, method)(arg, sp)
+        before = kernel.launches
+        got = getattr(eng, method)(arg, sp, mesh=mesh)
+        torch.cuda.synchronize()
+        assert kernel.launches - before == 4, method
+        if "sparse" in method:
+            one, got = one.densify(), got.densify()
+        assert np.array_equal(one.matched, got.matched), method
+        assert np.array_equal(one.first_event, got.first_event), method

@@ -6,14 +6,17 @@
 profiles, seed 1 corpus): at ``data_shards=1``, with ``query_shards`` 1
 and 2, ingest ``events`` and ``bytes``, the replica queues are equal, and
 the continuous loop on a ``replay`` trace delivers the same queues with
-nothing shed.  The JAX CLI's ``main`` generates with the LM substrate
-(ROADMAP item 14) and gets no twin; ``data_shards > 1`` raises (item 13).
-Exact equality.
+nothing shed.  With ``data_shards=2`` the stage runs on a mesh and
+routes bytes through its pipelined route; those routes are held to the
+JAX package's unsharded routes, since the JAX CLI's own 2-D byte routes
+fail on this JAX version.  The JAX CLI's ``main`` generates with the LM
+substrate (ROADMAP item 14) and gets no twin.  Exact equality.
 """
 import json
 from types import SimpleNamespace
 
 import pytest
+import torch
 
 import repro.launch.serve as jax_serve
 from repro.core.events import encode_bytes as jax_encode
@@ -116,7 +119,77 @@ def test_serve_continuous_replay_equals_jax(query_shards, tmp_path):
     assert sum(data["histogram"]["counts"]) == slo["completed"]
 
 
-def test_data_shards_raise_through_the_stage():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        serve.build_stage(REPLICAS, query_shards=2, data_shards=2,
-                          device="cpu")
+def test_data_shards_build_through_the_stage():
+    """``build_stage(data_shards=2)`` builds the stage on a mesh placed on
+    the one CPU device (1 x 1, as the JAX package's is on one device),
+    with a sharded plan of ``query_shards`` parts."""
+    stage, _ = serve.build_stage(REPLICAS, query_shards=2, data_shards=2,
+                                 device="cpu")
+    jstage, _ = jax_serve.build_stage(REPLICAS, query_shards=2,
+                                      data_shards=2)
+    assert stage.mesh.shape == dict(jstage.mesh.shape) \
+        == {"data": 1, "model": 1}
+    assert stage.sharded_.part_cols == jstage.sharded_.part_cols
+    assert stage.mesh.devices == [torch.device("cpu")]
+
+
+def _reference_queues():
+    """The JAX CLI tests' parity oracle: a monolithic event-ingest stage
+    over the CLI's workload.  The JAX CLI's own 2-D byte routes fail on
+    this JAX version (their mesh-placed batch reaches ``parse_batch``), so
+    the port's 2-D routes are held to this unsharded route."""
+    (_, _, _), (jstage, jpayloads, _) = _pair(1)
+    return jax_serve.route_requests(jstage, jpayloads, ingest="events")
+
+
+@pytest.mark.parametrize("query_shards", [1, 2],
+                         ids=["dshards-bytes", "2d-bytes"])
+def test_data_sharded_route_requests_equals_jax_unsharded(query_shards):
+    """The twins of the JAX CLI's ``--data-shards 2 --ingest bytes`` runs
+    (with ``--query-shards`` 1 and 2): the pipelined bytes route of the
+    2-D stage delivers the unsharded stage's queues, on the placed mesh
+    and on a grid of the CPU device, 2 x ``query_shards``."""
+    from repro_torch.launch.mesh import FilterMesh
+
+    want = _reference_queues()
+    for mesh in (None, FilterMesh([["cpu"] * query_shards] * 2)):
+        stage, dtd = serve.build_stage(REPLICAS, batch_size=BATCH,
+                                       query_shards=query_shards,
+                                       data_shards=2, device="cpu")
+        if mesh is not None:
+            stage.mesh = mesh
+        payloads, raw = _requests(dtd, gen_corpus, encode_bytes)
+        assert serve.route_requests(stage, payloads, ingest="bytes",
+                                    raw=raw) == want
+        assert stage.stats["overlapped_batches"] == 1
+
+
+def test_data_shards_report_per_axis_stats():
+    """The twin of the JAX CLI's per-axis stats line: ``throughput()``
+    after the pipelined route reports the placed mesh's axes, each data
+    row's docs/s, each model position's queries and the overlapped
+    batches."""
+    stage, dtd = serve.build_stage(REPLICAS, batch_size=BATCH,
+                                   data_shards=2, device="cpu")
+    payloads, raw = _requests(dtd, gen_corpus, encode_bytes)
+    assert serve.route_requests(stage, payloads, ingest="bytes",
+                                raw=raw) == _reference_queues()
+    tp = stage.throughput()
+    assert (tp["mesh_data"], tp["mesh_model"]) == (1, 1)
+    assert tp["docs"] == REQUESTS and tp["data_shards"] == 2
+    assert tp["docs_per_s_per_data_shard"] == pytest.approx(tp["docs_per_s"])
+    assert tp["queries_per_model_shard"] == 32
+    assert tp["overlapped_batches"] == 1 and tp["put_s"] >= 0.0
+
+
+def test_route_requests_helper_matches_stage_routing():
+    """The CLI's routing helper on the 2-D stage (the pipelined bytes
+    route) fans out to the queues of the JAX package's unsharded
+    stage."""
+    stage, dtd = serve.build_stage(REPLICAS, batch_size=BATCH,
+                                   query_shards=2, data_shards=2,
+                                   device="cpu")
+    payloads, raw = _requests(dtd, gen_corpus, encode_bytes)
+    got = serve.route_requests(stage, payloads, ingest="bytes", raw=raw)
+    assert [len(q) for q in got] == [len(q) for q in _reference_queues()]
+    assert got == _reference_queues()

@@ -8,7 +8,9 @@ the verdict the synchronous ``route_bytes`` path computes, delivered in
 admission order, and every bound binds.  Then the parity test: the same
 seeded payloads and arrival trace through the JAX package's loop and the
 port's, dense and sparse, at ``max_inflight`` 1 and 3, must give identical
-delivery queues, dead letters and deterministic counters.  Waits are
+delivery queues, dead letters and deterministic counters.  Last, the
+twins of its ``data_shards=2`` tests: the loop over a 2-D stage, and the
+K-deep pipelined route on a mesh of the CPU device.  Waits are
 generous upper bounds; no assertion depends on tight timing.
 """
 import os
@@ -33,6 +35,7 @@ from repro_torch.core.events import (DEFAULT_MAX_DEPTH, KernelFault,
                                      encode_bytes)
 from repro_torch.data.filter_stage import TEXT_FILL, FilterStage
 from repro_torch.data.generator import DTD, gen_corpus, gen_profiles
+from repro_torch.launch.mesh import FilterMesh
 from repro_torch.serve.loop import (ServeLoop, burst_arrivals,
                                     make_arrivals, poisson_arrivals,
                                     replay_arrivals, run_trace)
@@ -514,3 +517,86 @@ def test_sharded_hot_swap_with_batches_in_flight():
     recompiles one part and restacks it in new tensors while batches of
     the old epoch are undelivered."""
     assert swap_with_batches_in_flight("cpu", query_shards=2) == [0, 0, 0, 1]
+
+
+# ------------------------------------------------ the 2-D stage in the loop
+def _jax_routes(n_docs, seed=0, **kw):
+    """Routes of the JAX package's stage over the same seeded payloads."""
+    dtd = JaxDTD.generate(n_tags=24, seed=seed)
+    d = JaxDictionary()
+    dtd.register(d)
+    profiles = jax_profiles(dtd, n=N_QUERIES, length=3, seed=seed)
+    raw = [jax_encode(x, text_fill=TEXT_FILL)
+           for x in jax_corpus(dtd, n_docs=n_docs, nodes_per_doc=40, seed=1)]
+    stage = JaxStage(profiles, d, n_shards=2, engine=ENGINE,
+                     keep_unmatched=True, batch_size=BATCH, **kw)
+    return _routes(stage.route_bytes(raw))
+
+
+def _cpu_mesh(data, model):
+    return FilterMesh([["cpu"] * model for _ in range(data)])
+
+
+def test_parity_2d_mesh_stage():
+    """The loop over a 2-D (data × model) stage on a 2 x 2 grid of the CPU
+    device: the worker launches at every position, and delivers the
+    unsharded synchronous route's verdicts, the JAX package's too."""
+    profiles, d, raw = _workload(n_docs=8)
+    loop = ServeLoop(_stage(profiles, d, query_shards=2, data_shards=2,
+                            mesh=_cpu_mesh(2, 2)),
+                     max_batch=BATCH, deadline_ms=60_000, queue_cap=64)
+    with loop:
+        tickets = [loop.submit(p) for p in raw]
+    want = _routes(_stage(profiles, d).route_bytes(raw))
+    assert _ticket_routes(tickets) == want == _jax_routes(8)
+
+
+def test_2d_hot_swap_with_batches_in_flight():
+    """The hot-swap scenario on a 2-D stage: the subscribe builds a new
+    sharded plan, so batches of the old epoch keep their model slices
+    and the new epoch's batches get new ones."""
+    assert swap_with_batches_in_flight(
+        "cpu", query_shards=2, data_shards=2,
+        mesh=_cpu_mesh(2, 2)) == [0, 0, 0, 1]
+
+
+class TestRouteBytesPipelinedKDeep:
+    """The K-deep pipelined route on a data-sharded stage (a 2 x 1 grid of
+    the CPU device): routes as ``route_bytes`` at any depth, stages each
+    batch exactly once (where ``put_seconds`` accrues), and counts the
+    batches staged while a predecessor was in flight."""
+
+    def _stage2d(self, profiles, d, **kw):
+        return _stage(profiles, d, data_shards=2, mesh=_cpu_mesh(2, 1), **kw)
+
+    @pytest.mark.parametrize("depth", [1, 2, 3, 8])
+    def test_depth_parity_and_single_staging(self, depth):
+        profiles, d, raw = _workload(n_docs=12, seed=5)
+        stage = self._stage2d(profiles, d)
+        stages_in = []
+        orig = stage._stage_in
+        stage._stage_in = lambda bufs: (stages_in.append(len(bufs))
+                                        or orig(bufs))
+        got = _routes(stage.route_bytes_pipelined(iter(raw), depth=depth))
+        want = _routes(self._stage2d(profiles, d).route_bytes(raw))
+        assert got == want == _jax_routes(12, seed=5, data_shards=2)
+        # 12 docs / batch 4 = 3 batches, each staged exactly once
+        assert stages_in == [BATCH] * 3
+        assert stage.stats["batches"] == 3
+        # depth 1 is synchronous; deeper overlaps every batch after the
+        # first
+        assert stage.stats["overlapped_batches"] == (0 if depth == 1 else 2)
+
+    def test_default_depth_is_double_buffer(self):
+        profiles, d, raw = _workload(n_docs=12, seed=5)
+        stage = self._stage2d(profiles, d)
+        assert stage.pipeline_depth == 2
+        got = _routes(stage.route_bytes_pipelined(raw))
+        assert got == _routes(self._stage2d(profiles, d).route_bytes(raw))
+        assert stage.stats["overlapped_batches"] == 2
+
+    def test_pipeline_depth_field_threads_through(self):
+        profiles, d, raw = _workload(n_docs=12, seed=5)
+        stage = self._stage2d(profiles, d, pipeline_depth=3)
+        got = _routes(stage.route_bytes_pipelined(raw))
+        assert got == _routes(self._stage2d(profiles, d).route_bytes(raw))

@@ -1,6 +1,6 @@
 """The port's query-sharded plans against the JAX package's, on the CPU.
 
-The counterparts of ``tests/test_sharded.py``'s cases without a mesh:
+The counterparts of ``tests/test_sharded.py``'s cases:
 every engine over {1, 2, 4} parts equal to its unsharded run and to the
 JAX package's sharded run, the bytes path, churn that recompiles one part,
 tombstones and their reclaim, a 50-op churn equal to a fresh compile, the
@@ -8,8 +8,9 @@ sharded stage with gids never reused, and the area model.  Then what the
 port adds: equal plan layouts (pads, ``gid_columns``, ``part_cols`` and
 the stacked tables) after the same churn and rebalance, plans carried
 across by ``convert.sharded_plan_from_numpy``, copy-on-write restacks, K6
-folded over the parts equal to K6 part by part, and ONE launch of a
-kernel per sharded request whatever the part count.  The JAX streaming
+folded over the parts equal to K6 part by part, ONE launch of a kernel
+per sharded request whatever the part count, and ``mesh=`` over a grid
+of the CPU device equal to the one-card run.  The JAX streaming
 engine runs its scan for verdicts and its Pallas plan (``blk`` pinned,
 interpret mode) for layouts.  Exact equality throughout.
 """
@@ -199,13 +200,38 @@ class TestShardedEquivalence:
     @pytest.mark.parametrize("method", [
         "filter_batch_sharded", "filter_batch_sharded_sparse",
         "filter_bytes_sharded", "filter_bytes_sharded_sparse"])
-    def test_a_mesh_raises_naming_item_13(self, method):
-        eng, _, pb, batch, _, _ = pair("streaming", seed=0)
-        sp = eng.plan_sharded(2)
-        arg = pb if "batch" in method else port_bytes(
-            ByteBatch.from_streams([batch.stream(0)]))
-        with pytest.raises(NotImplementedError, match="item 13"):
-            getattr(eng, method)(arg, sp, mesh=object())
+    def test_a_mesh_spreads_parts_over_model(self, method):
+        """``mesh=`` spreads the parts over the mesh's ``"model"`` axis, one
+        launch a model position (a 2 x 2 grid of the CPU device: two
+        positions of the first data row); the result equals the one-card
+        run and the JAX package's run on its (1, 1) mesh (its sparse
+        methods without one: their compaction over a mesh raises a
+        ``ShardingTypeError`` in some JAX installs, ROADMAP queue 3)."""
+        from repro.launch.mesh import make_filter_mesh as jax_filter_mesh
+        from repro_torch.launch.mesh import FilterMesh
+
+        eng, jeng, pb, batch, _, _ = pair("streaming", seed=0)
+        sp, jsp = eng.plan_sharded(2), jeng.plan_sharded(2)
+        jdocs = [batch.stream(i) for i in range(batch.batch_size)]
+        bb = ByteBatch.from_buffers([jax_encode(x) for x in jdocs],
+                                    bucket=512)
+        arg, jarg = (pb, batch) if "batch" in method else (port_bytes(bb), bb)
+        mesh = FilterMesh([["cpu", "cpu"], ["cpu", "cpu"]])
+        got = getattr(eng, method)(arg, sp, mesh=mesh)
+        one = getattr(eng, method)(arg, sp)
+        want = getattr(jeng, method)(
+            jarg, jsp, mesh=None if "sparse" in method
+            else jax_filter_mesh(2))
+        if "sparse" in method:
+            assert got.meta == one.meta
+            for k in ("doc_ids", "query_ids", "first_event", "live_ids"):
+                np.testing.assert_array_equal(getattr(got, k),
+                                              getattr(one, k))
+                np.testing.assert_array_equal(getattr(got, k),
+                                              getattr(want, k))
+            got, want = got.densify(), want.densify()
+        assert_same(want, got)
+        assert got.matched.any()
 
 
 # ----------------------------------------------------------- churn semantics

@@ -6,8 +6,9 @@ and the shadow-plan hot swap, run on the port (``device="cpu"``) and held
 against the JAX package at the same settings: the unsharded stage
 (``query_shards=1``; the reference runs its swap tests on
 ``query_shards=2``), dense and ``sparse=True``.  Exact equality
-throughout.  Then what the port adds: sharding asks raise, and the kernel
-build is safe when threads miss at the same time.
+throughout.  Then what the port adds: the query-sharded and 2-D stages
+route as the JAX package's, and the kernel build is safe when threads
+miss at the same time.
 """
 import threading
 
@@ -497,16 +498,32 @@ class TestShadowSwap:
         assert _routes(tickets) == _stage_routes(_stage(profiles, d), raw)
 
 
-# ----------------------------------------------------- what raises instead
+# ------------------------------------------------------- the 2-D stage
 @pytest.mark.parametrize("kw", [{"data_shards": 2},
                                 {"query_shards": 2, "data_shards": 2}],
                          ids=["data", "both"])
-def test_sharding_is_not_ported_and_raises(kw):
-    """The 2-D (data x model) stage is ROADMAP item 13: asking for one
-    raises, never silently runs without the data axis."""
-    profiles, d, _, _ = _workload(n_docs=1)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        _stage(profiles, d, **kw)
+def test_data_sharded_stage_routes_as_jax(kw):
+    """A stage with a data axis runs the 2-D path (here over a 2 x 2 grid
+    of the CPU device, or 2 x 1 with one part): its routes equal the JAX
+    package's unsharded stage, dense and sparse, before and after the
+    same churn."""
+    from repro_torch.launch.mesh import FilterMesh
+
+    profiles, d, dtd, raw = _workload(n_docs=8)
+    jprofiles, jd, jdtd, jraw = _jax_workload(n_docs=8)
+    model = kw.get("query_shards", 1)
+    mesh = FilterMesh([["cpu"] * model for _ in range(2)])
+    want = _stage_routes(_jax_stage(jprofiles, jd), jraw)
+    for route in ROUTES:
+        stage = _stage(profiles, d, mesh=mesh, **route, **kw)
+        assert stage.sharded_.n_parts == model
+        assert want and _stage_routes(stage, raw) == want
+    jstage = _jax_stage(jprofiles, jd)
+    for st, g in ((stage, gen_profiles), (jstage, jax_profiles)):
+        st.subscribe(g(dtd if st is stage else jdtd, n=1, length=3,
+                       seed=57)[0])
+        st.unsubscribe(3)
+    assert _stage_routes(stage, raw) == _stage_routes(jstage, jraw)
 
 
 @pytest.mark.parametrize("kw", ROUTES, ids=ROUTE_IDS)
