@@ -130,7 +130,21 @@ printed as it runs; any failure exits non-zero:
    requests of phase 7(c)'s churn trace (phase 7(a)'s messages and
    rate), one subscribe and one unsubscribe, each request routed as
    phase 7(c)'s synchronous stage on its epoch's live set;
-11. the end-to-end line, one ``{"kernels": [...]}`` line, the card line,
+11. model serving: (a) qwen3-0.6b at its published width (28 layers,
+   d_model 1,024, 16/8 heads of 128, vocab 151,936, float32 parameters
+   drawn from seed 0) on the card against the port on the CPU, one
+   16-token prompt, TF32 off: logits within 1e-3, the same greedy token;
+   (b) the serving CLI's path at that width: ``build_stage(2,
+   engine="streaming")`` routes 32 requests as bytes (K2), then each
+   replica's ``ServeEngine`` (bfloat16 cache) generates its queue in
+   batches of 8 with 128-token prompts and 32 new tokens: prefill ms and
+   decode ms a step (CUDA events), tokens/s, peak device memory, the
+   decode step's byte bound and its device-busy share (``torch.profiler``);
+   (c) every architecture of the registry, reduced, on the card: prefill
+   then decode equal to the full forward and to the CPU port's forward;
+   (d) ``repro_torch.launch.serve.main`` once through ``sys.argv``
+   (``--filter-engine streaming --ingest bytes``, the rest its defaults);
+12. the end-to-end line, one ``{"kernels": [...]}`` line, the card line,
    and the result line.
 """
 from __future__ import annotations
@@ -213,6 +227,17 @@ CLI_REPLICAS, CLI_REQUESTS = 2, 8
 MESH_DATA, MESH_MODEL = 2, 2
 MESH_DEPTHS = (1, 3)
 MESH_SERVE_REQUESTS = 2048
+
+# phase 11, model serving: qwen3-0.6b at its published width; 32
+# requests of the CLI's workload routed over 2 replicas, each queue
+# generated in batches of 8, 128-token prompts, 32 new tokens; one
+# 16-token prompt against the CPU; the reduced registry at batch 2, 16
+# tokens
+LM_ARCH = "qwen3-0.6b"
+LM_REQUESTS, LM_REPLICAS, LM_BATCH = 32, 2, 8
+LM_PROMPT, LM_NEW, LM_CHECK_TOKENS = 128, 32, 16
+LM_TOL = 1e-3
+LM_ZOO_BATCH, LM_ZOO_SEQ, LM_ZOO_TOL = 2, 16, 2e-4
 
 # card peaks (H100 SXM data sheet): HBM bytes/s, the 32-bit non-tensor
 # rate, which bounds the kernels' integer bit operations and K6's float32
@@ -2349,6 +2374,290 @@ def mesh_phase(dtd, d, qs, bufs, run, short, level_ref, serving, sharded,
     return out
 
 
+# ---------------------------------------------------------------- phase 11
+def tree_bytes(tree: dict) -> int:
+    return sum(tree_bytes(v) if isinstance(v, dict)
+               else v.numel() * v.element_size() for v in tree.values())
+
+
+def tree_to(tree: dict, device) -> dict:
+    return {k: tree_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def decode_bound_ms(cfg, param_bytes: int, cache_dtype) -> float:
+    """The least time of one decode step at LM_BATCH, averaged over the
+    run's steps: every parameter read once (the tied embedding once, for
+    the unembedding), the cached keys and values up to the step's
+    length read once, the logits written once, over the card's memory
+    rate.  The products (2 operations a parameter a row, 0.14 ms at the
+    float32 rate) take less."""
+    elem = torch.empty((), dtype=cache_dtype).element_size()
+    per_position = cfg.n_layers * 2 * LM_BATCH * cfg.n_kv_eff * cfg.d_head \
+        * elem
+    mean_keys = LM_PROMPT + LM_NEW / 2       # step i reads LM_PROMPT + i + 1
+    logits = LM_BATCH * cfg.vocab_eff * 4
+    return (param_bytes + mean_keys * per_position + logits) \
+        / HBM_BYTES_PER_S * 1e3
+
+
+def device_busy_us(fn) -> tuple[float, int] | None:
+    """(kernel microseconds, kernel count) of ``fn()`` from a
+    ``torch.profiler`` trace of the card, or None where the trace holds
+    no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels)
+    return (busy, len(kernels)) if busy > 0 else None
+
+
+def lm_zoo(dev) -> dict:
+    """(c) every architecture, reduced, on the card: prefill then decode
+    equals the full forward, and the full forward the CPU port's."""
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.models import transformer as T
+
+    errs = {}
+    for name in ARCHS:
+        cfg = get_config(name, reduced=True)
+        host = T.init_model(cfg, torch.Generator().manual_seed(0))
+        params = tree_to(host, dev)
+        rng = np.random.default_rng(0)
+        b, s = LM_ZOO_BATCH, LM_ZOO_SEQ
+        batch = {"tokens": torch.from_numpy(
+            rng.integers(0, cfg.vocab, (b, s)).astype(np.int32))}
+        extra = cfg.frontend_len if cfg.family == "vlm" else 0
+        key = {"vlm": "patches", "encdec": "frames"}.get(cfg.family)
+        if key:
+            batch[key] = torch.from_numpy(rng.normal(
+                size=(b, cfg.frontend_len, cfg.d_model)).astype(np.float32))
+        on_card = {k: v.to(dev) for k, v in batch.items()}
+        with torch.inference_mode():
+            full, _ = T.forward_logits(cfg, params, on_card)
+            want, _ = T.forward_logits(cfg, host, batch)
+            caches = T.init_cache(cfg, b, s + 4 + extra,
+                                  dtype=torch.float32, device=dev)
+            _, caches = T.prefill(cfg, params, {
+                **on_card, "tokens": on_card["tokens"][:, :s - 1]}, caches)
+            dec, _ = T.decode_step(cfg, params, on_card["tokens"][:, s - 1:],
+                                   caches, s - 1 + extra)
+        v = cfg.vocab
+        full, dec = full[..., :v].float().cpu(), dec[..., :v].float().cpu()
+        want = want[..., :v]
+        check(torch.allclose(dec[:, -1], full[:, -1], rtol=LM_ZOO_TOL,
+                             atol=LM_ZOO_TOL),
+              f"(c) {name}: prefill then decode differs from the full "
+              f"forward by {float((dec[:, -1] - full[:, -1]).abs().max())}")
+        check(torch.allclose(full, want, rtol=LM_ZOO_TOL, atol=LM_ZOO_TOL),
+              f"(c) {name}: the card's forward differs from the CPU's by "
+              f"{float((full - want).abs().max())}")
+        errs[name] = (float((dec[:, -1] - full[:, -1]).abs().max()),
+                      float((full - want).abs().max()))
+    return errs
+
+
+def lm_phase(dev) -> dict:
+    import contextlib
+    import io
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.events import encode_bytes
+    from repro_torch.data.filter_stage import TEXT_FILL as CLI_TEXT_FILL
+    from repro_torch.data.generator import gen_corpus
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import ServeEngine
+
+    # full float32 products, on the card and on the CPU alike
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    cfg = get_config(LM_ARCH)
+    say(f"phase 11: model serving, {LM_ARCH} at its published width: "
+        f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads of {cfg.d_head}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}; TF32 off")
+    out: dict = {}
+    t = time.perf_counter()
+    params = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    out["param_bytes"] = tree_bytes(params)
+    say(f"{out['param_bytes'] / 1e9:.3f} GB of float32 parameters drawn on "
+        f"the card in {time.perf_counter() - t:.2f} s")
+
+    # (a) the card against the CPU, one prompt
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (1, LM_CHECK_TOKENS)).astype(np.int32))
+    with torch.inference_mode():
+        card, _ = T.forward_logits(cfg, params, {"tokens": prompt.to(dev)})
+        host_params = tree_to(params, "cpu")
+        t = time.perf_counter()
+        host, _ = T.forward_logits(cfg, host_params, {"tokens": prompt})
+        host_s = time.perf_counter() - t
+        del host_params
+    card = card[..., :cfg.vocab].float().cpu()
+    host = host[..., :cfg.vocab]
+    out["max_abs_err"] = float((card - host).abs().max())
+    check(torch.allclose(card, host, rtol=LM_TOL, atol=LM_TOL),
+          f"(a) {LM_ARCH}: the card's logits differ from the CPU's by "
+          f"{out['max_abs_err']}")
+    check(int(card[0, -1].argmax()) == int(host[0, -1].argmax()),
+          f"(a) {LM_ARCH}: the card's greedy token differs from the CPU's")
+    say(f"(a) {LM_CHECK_TOKENS}-token prompt: card logits within "
+        f"{out['max_abs_err']:.3g} of the CPU port's (tolerance {LM_TOL}; "
+        f"the CPU took {host_s:.2f} s), the same greedy token "
+        f"{int(card[0, -1].argmax())}")
+
+    # (b) route (K2), then each replica generates its queue
+    stage, dtd = serve.build_stage(LM_REPLICAS, engine="streaming",
+                                   batch_size=LM_BATCH, device=str(dev))
+    payloads = gen_corpus(dtd, n_docs=LM_REQUESTS, nodes_per_doc=60, seed=1)
+    raw = [encode_bytes(x, text_fill=CLI_TEXT_FILL) for x in payloads]
+    host_stage, _ = serve.build_stage(LM_REPLICAS, engine="streaming",
+                                      batch_size=LM_BATCH, device="cpu")
+    want_queues = serve.route_requests(host_stage, payloads)
+    replicas = [ServeEngine(cfg, params, batch=LM_BATCH,
+                            max_len=LM_PROMPT + LM_NEW + 4, device=dev)
+                for _ in range(LM_REPLICAS)]
+    rng = np.random.default_rng(0)
+    for eng in replicas:      # warm-up: the shapes' first launches
+        eng.generate({"tokens": np.zeros((LM_BATCH, LM_PROMPT), np.int32)},
+                     2)
+
+    def route_and_generate():
+        queues = serve.route_requests(stage, payloads, ingest="bytes",
+                                      raw=raw)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        n_tok = calls = 0
+        for rep, queue in enumerate(queues):
+            for i in range(0, len(queue), LM_BATCH):
+                prompts = rng.integers(0, cfg.vocab, (
+                    LM_BATCH, LM_PROMPT)).astype(np.int32)
+                toks = replicas[rep].generate({"tokens": prompts}, LM_NEW)
+                check(toks.shape == (LM_BATCH, LM_NEW)
+                      and 0 <= toks.min() and toks.max() < cfg.vocab,
+                      f"(b) generate gave {toks.shape} tokens in "
+                      f"[{toks.min()}, {toks.max()}]")
+                n_tok += LM_NEW * len(queue[i:i + LM_BATCH])
+                calls += 1
+        return queues, n_tok, calls, time.perf_counter() - t
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t = time.perf_counter()
+    queues, n_tok, calls, gen_s = route_and_generate()
+    wall = time.perf_counter() - t
+    out["launches"] = counts()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    say(f"(b) route then generate: launches {out['launches']}")
+    check(out["launches"]["K2"] > 0 and not any(
+        n for k, n in out["launches"].items() if k != "K2"),
+        "(b) the route → generate run launched other than K2")
+    check(queues == want_queues, f"(b) the card routed {queues}, the CPU "
+                                 f"stage {want_queues}")
+    out.update(queues=[len(q) for q in queues], tokens=n_tok,
+               generate_calls=calls, generate_s=gen_s, wall_s=wall,
+               tok_per_s=n_tok / gen_s)
+
+    # prefill and decode steps of one batch between CUDA events
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (
+        LM_BATCH, LM_PROMPT)).astype(np.int32), device=dev)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    with torch.inference_mode():
+        caches = T.init_cache(cfg, LM_BATCH, LM_PROMPT + LM_NEW + 4,
+                              device=dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ev[0].record()
+        logits, caches = T.prefill(cfg, params, {"tokens": prompts}, caches)
+        tok = logits[:, -1, :cfg.vocab].argmax(-1)[:, None].to(torch.int32)
+        ev[1].record()
+        t1 = time.perf_counter()
+
+        def steps(first, n):
+            nonlocal tok, caches
+            for i in range(first, first + n):
+                logits, caches = T.decode_step(cfg, params, tok, caches,
+                                               LM_PROMPT + i)
+                tok = logits[:, -1, :cfg.vocab].argmax(-1)[:, None].to(
+                    torch.int32)
+
+        steps(0, LM_NEW - 2)
+        ev[2].record()
+        ev[2].synchronize()
+        host_decode_ms = (time.perf_counter() - t1) * 1e3 / (LM_NEW - 2)
+        out["prefill_ms"] = ev[0].elapsed_time(ev[1])
+        out["decode_ms"] = ev[1].elapsed_time(ev[2]) / (LM_NEW - 2)
+        busy = device_busy_us(lambda: steps(LM_NEW - 2, 1))
+    out["decode_bound_ms"] = decode_bound_ms(cfg, out["param_bytes"],
+                                             torch.bfloat16)
+    out["decode_busy_ms"] = busy[0] / 1e3 if busy else None
+    out["decode_kernels"] = busy[1] if busy else None
+    if busy:
+        share = out["decode_busy_ms"] / out["decode_ms"]
+        busy_text = (f"the card busy {out['decode_busy_ms']:.3f} ms of it "
+                     f"in {out['decode_kernels']} kernels ({share:.1%}; "
+                     f"torch.profiler, one step)")
+    else:
+        busy_text = ("its device-busy share not measured (the profiler "
+                     "trace held no device time)")
+    say(f"(b) {LM_REQUESTS} requests routed to queues {out['queues']} "
+        f"(K2, equal to the CPU stage's), {calls} generate calls of "
+        f"{LM_BATCH} x {LM_PROMPT} prompts and {LM_NEW} new tokens: "
+        f"{n_tok} tokens in {gen_s:.3f} s = {out['tok_per_s']:.1f} tok/s "
+        f"(host clock); route and generate {wall:.3f} s; peak device "
+        f"memory {out['peak_bytes'] / 2**30:.2f} GiB; prefill "
+        f"{out['prefill_ms']:.3f} ms, decode {out['decode_ms']:.3f} ms a "
+        f"step (CUDA events; {host_decode_ms:.3f} ms on the host clock) "
+        f"against its byte bound {out['decode_bound_ms']:.3f} ms "
+        f"({out['decode_bound_ms'] / out['decode_ms']:.1%}); {busy_text}")
+    del replicas, params, caches, logits
+    torch.cuda.empty_cache()
+
+    # (c) the registry, reduced
+    out["zoo"] = lm_zoo(dev)
+    say("(c) every architecture, reduced, on the card: prefill then decode "
+        "within " + ", ".join(f"{k} {v[0]:.1e}" for k, v in
+                              out["zoo"].items())
+        + f" of the full forward (tolerance {LM_ZOO_TOL}); the forward "
+        f"within at most {max(v[1] for v in out['zoo'].values()):.1e} of "
+        f"the CPU port's")
+
+    # (d) the serving CLI's main, through argv
+    argv = ["serve", "--filter-engine", "streaming", "--ingest", "bytes"]
+    text = io.StringIO()
+    saved = sys.argv
+    sys.argv = argv
+    reset_counts()
+    t = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(text):
+            serve.main()
+    finally:
+        sys.argv = saved
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t
+    out["main_launches"] = counts()
+    print(text.getvalue().strip(), flush=True)
+    check("[serve] generated" in text.getvalue()
+          and "[serve] live churn" in text.getvalue(),
+          "(d) main printed no churn or generation line")
+    check({k for k, n in out["main_launches"].items() if n}
+          == {"K1", "K2"}, f"(d) main launched {out['main_launches']}; "
+                           f"expected K2 (bytes) and K1 (the churn's "
+                           f"re-route)")
+    say(f"(d) {' '.join(argv[1:])}: {main_s:.2f} s, launches "
+        f"{out['main_launches']}")
+    return out
+
+
 # ------------------------------------------------------------------- main
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2388,10 +2697,11 @@ def main() -> int:
     api = api_phase(dtd, d, qs, bufs, run, short, level_ref, layout, dev)
     mesh = mesh_phase(dtd, d, qs, bufs, run, short, level_ref, serving,
                       sharded, dev)
+    lm = lm_phase(dev)
 
     s = run["stats"]
     card = card_line()
-    say(f"phase 11: end to end on {card}: {len(run['payloads'])} documents, "
+    say(f"phase 12: end to end on {card}: {len(run['payloads'])} documents, "
         f"{run['n_bytes']} bytes in {run['e2e_s']:.3f} s = "
         f"{len(run['payloads']) / run['e2e_s']:.1f} docs/s, "
         f"{run['n_bytes'] / run['e2e_s'] / 1e6:.1f} MB/s (host clock around "
@@ -2422,6 +2732,11 @@ def main() -> int:
         f"{mesh['request_ms']:.3f} ms a request, pipelined depth 3 "
         f"{mesh['pipelined'][3]['docs_per_s']:.1f} docs/s, serve loop "
         f"{mesh['serve']['docs_per_s']:.1f} docs/s"
+        + f"; model serving ({LM_ARCH}, {LM_REPLICAS} replicas): "
+        f"{lm['tok_per_s']:.1f} tok/s, prefill {lm['prefill_ms']:.3f} ms, "
+        f"decode {lm['decode_ms']:.3f} ms a step (bound "
+        f"{lm['decode_bound_ms']:.3f} ms), peak "
+        f"{lm['peak_bytes'] / 2**30:.2f} GiB"
         + f"; serve loop: sparse pub-sub p50 "
         f"{serving['sparse']['p50_ms']:.3f} / p99 "
         f"{serving['sparse']['p99_ms']:.3f} ms at "
@@ -2462,6 +2777,10 @@ def main() -> int:
         # phase 10: the 2-D mesh, one launch a position (K3: a model
         # position, on the 1-D mesh= path)
         row["mesh_launches"] = mesh["launches"][key]
+        # phase 11: the model-serving path (route, then generate) and
+        # the serving CLI's main (whose churn re-routes events: K1)
+        row["lm_launches"] = lm["launches"][key]
+        row["lm_main_launches"] = lm["main_launches"][key]
         row["mesh_positions"] = mesh["positions"]
         if key == "K2":
             row["mesh_position_ms"] = mesh["position_ms"]

@@ -1,0 +1,14 @@
+# Copy of src/repro/configs/qwen1_5_110b.py (the port imports nothing of the JAX package).
+"""qwen1.5-110b — dense GQA with QKV bias [hf:Qwen/Qwen1.5 family; hf]."""
+from ..models.config import ModelConfig
+
+
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="qwen1.5-110b", family="dense",
+        n_layers=80, d_model=8192, n_heads=64, n_kv_heads=8, d_head=128,
+        d_ff=49152, vocab=152064,
+        qkv_bias=True, rope_theta=1e6,
+        optimizer="adafactor",
+        grad_accum=8,
+    )

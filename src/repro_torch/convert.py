@@ -15,7 +15,11 @@ another build produced:
 * :func:`sharded_plan_from_numpy` — a sharded plan: each part's tables
   through the function of its engine family, with the partition's
   bookkeeping (columns, queries, sub-NFAs, pads), into the port's
-  :class:`~repro_torch.core.engines.base.ShardedPlan`.
+  :class:`~repro_torch.core.engines.base.ShardedPlan`;
+* :func:`model_params_from_numpy` — a model's parameter tree (the JAX
+  package's after ``jax.tree.map(np.asarray, params)``), checked key for
+  key against the port's :func:`~repro_torch.models.transformer.
+  init_model` tree.
 """
 from __future__ import annotations
 
@@ -28,6 +32,8 @@ from .core.engines.base import FilterEngine, FilterPlan, ShardedPlan
 from .core.nfa import NFA, NFATables
 from .core.xpath import parse
 from .kernels.stream_filter import check_block_tables
+from .models import transformer
+from .models.config import ModelConfig
 
 #: the block tables the megakernels and the lane → query gather read
 BLOCK_TABLES = ("kb_tagmask", "kb_pw", "kb_pb", "kb_selfloop", "kb_init",
@@ -232,3 +238,42 @@ def sharded_plan_from_numpy(engine: FilterEngine,
     return ShardedPlan(engine, plans, part_cols, queries,
                        [nfa_from_numpy(n) for n in part_nfas], pads,
                        n_global, query_bucket, shared)
+
+
+def model_params_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any],
+                            device: str | torch.device) -> dict:
+    """A model's parameters as nested dicts of numpy arrays (the stacked
+    layer axis leading) → the same tree of tensors on ``device``.
+
+    Every key, shape and dtype must be those of the port's
+    ``init_model(cfg)`` tree (built on the meta device, so no memory);
+    a missing, extra or misshapen leaf raises ``ValueError`` naming its
+    path.
+    """
+    def carry(spec: Mapping[str, Any], got: Mapping[str, Any], path: str):
+        if not isinstance(got, Mapping):
+            raise ValueError(f"{path or 'params'}: expected a dict, got "
+                             f"{type(got).__name__}")
+        missing = sorted(set(spec) - set(got))
+        extra = sorted(set(got) - set(spec))
+        if missing or extra:
+            raise ValueError(f"{path or 'params'}: missing keys {missing}, "
+                             f"unexpected keys {extra}")
+        out = {}
+        for k, want in spec.items():
+            where = f"{path}/{k}" if path else k
+            if isinstance(want, dict):
+                out[k] = carry(want, got[k], where)
+                continue
+            arr = np.asarray(got[k])
+            dtype = str(want.dtype).removeprefix("torch.")
+            if arr.shape != tuple(want.shape) or str(arr.dtype) != dtype:
+                raise ValueError(f"{where}: {arr.dtype}{list(arr.shape)}, "
+                                 f"expected {dtype}{list(want.shape)}")
+            arr = np.array(arr)        # a writable copy (JAX's are read-only)
+            t = (torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+                 if dtype == "bfloat16" else torch.from_numpy(arr))
+            out[k] = t.to(device)
+        return out
+
+    return carry(transformer.init_model(cfg, None), tree, "")

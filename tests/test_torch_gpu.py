@@ -21,8 +21,12 @@ cache: a hit's tables on the card equal a compile's, and a hot swap whose
 rebuild reads the cache runs with batches in flight.  The public wrappers
 of ``kernels.ops`` and a tiny ``autotune.search`` on the card.  The mesh:
 a 2 x 2 and a 1 x 4 grid of positions on the one card, one launch a
-position, each on a stream of its own.  The file imports nothing of JAX,
-so it runs where only the port is installed.
+position, each on a stream of its own.  The model zoo: every
+architecture, reduced, on the card against the CPU (float32, TF32 off:
+within ``MODEL_TOL``), prefill then decode against the full forward,
+``ServeEngine`` tokens at a float32 cache equal to the CPU engine's, and
+the serving CLI's ``main`` on the card (K2 launched).  The file imports
+nothing of JAX, so it runs where only the port is installed.
 """
 import threading
 import time
@@ -1017,3 +1021,107 @@ def test_mesh_1d_filters_on_card_equal_one_card(cuda):
             one, got = one.densify(), got.densify()
         assert np.array_equal(one.matched, got.matched), method
         assert np.array_equal(one.first_event, got.first_event), method
+
+
+# ------------------------------------------------------------- model zoo
+MODEL_TOL = dict(rtol=2e-4, atol=2e-4)
+
+
+@pytest.fixture
+def no_tf32():
+    """Full float32 products for the card-against-CPU checks."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _model(name):
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(name, reduced=True)
+    params = T.init_model(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab, (2, 16)).astype(np.int32))}
+    key = {"vlm": "patches", "encdec": "frames"}.get(cfg.family)
+    if key:
+        batch[key] = torch.from_numpy(rng.normal(
+            size=(2, cfg.frontend_len, cfg.d_model)).astype(np.float32))
+    return cfg, params, batch
+
+
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("name", [
+    "qwen3-0.6b", "deepseek-coder-33b", "qwen1.5-110b", "starcoder2-7b",
+    "zamba2-7b", "internvl2-76b", "mamba2-780m", "whisper-large-v3",
+    "qwen3-moe-30b-a3b", "deepseek-v3-671b"])
+def test_model_on_card_equals_cpu(cuda, no_tf32, name):
+    from repro_torch.models import transformer as T
+
+    cfg, params, batch = _model(name)
+    dparams, dbatch = _to(params, cuda), _to(batch, cuda)
+    with torch.inference_mode():
+        want, _ = T.forward_logits(cfg, params, batch)
+        got, _ = T.forward_logits(cfg, dparams, dbatch)
+        extra = cfg.frontend_len if cfg.family == "vlm" else 0
+        caches = T.init_cache(cfg, 2, 20 + extra, dtype=torch.float32,
+                              device=cuda)
+        _, caches = T.prefill(cfg, dparams, {
+            **dbatch, "tokens": dbatch["tokens"][:, :15]}, caches)
+        dec, _ = T.decode_step(cfg, dparams, dbatch["tokens"][:, 15:],
+                               caches, 15 + extra)
+    v = cfg.vocab
+    got = got[..., :v].cpu()
+    torch.testing.assert_close(got, want[..., :v], **MODEL_TOL)
+    torch.testing.assert_close(dec[:, -1, :v].cpu(), got[:, -1], **MODEL_TOL)
+
+
+def test_serve_engine_on_card_equals_cpu(cuda, no_tf32):
+    from repro_torch.serve import ServeEngine
+
+    cfg, params, batch = _model("qwen3-0.6b")
+    prompts = batch["tokens"].numpy()
+    kw = dict(batch=2, max_len=24, cache_dtype=torch.float32)
+    want = ServeEngine(cfg, params, device="cpu", **kw).generate(
+        {"tokens": prompts}, 6)
+    got = ServeEngine(cfg, params, device=cuda, **kw).generate(
+        {"tokens": prompts}, 6)
+    np.testing.assert_array_equal(got, want)
+    out = ServeEngine(cfg, params, batch=2, max_len=24).generate(
+        {"tokens": prompts}, 6)       # the default: the card, bf16 cache
+    assert out.shape == (2, 6) and ((out >= 0) & (out < cfg.vocab)).all()
+
+
+def test_serve_main_on_card(cuda, monkeypatch, capsys):
+    """The serving CLI's ``main`` with no ``--device``: the card; bytes
+    routed by K2 to the queues a CPU run prints."""
+    import re
+    import sys
+
+    from repro_torch.launch import serve
+
+    args = ["serve", "--requests", "8", "--replicas", "2", "--batch", "4",
+            "--prompt-len", "8", "--gen-len", "4", "--filter-engine",
+            "streaming", "--ingest", "bytes"]
+    outs = []
+    for extra in (["--device", "cpu"], []):
+        monkeypatch.setattr(sys, "argv", args + extra)
+        before = sf.stream_filter_bytes.launches
+        serve.main()
+        torch.cuda.synchronize()
+        launched = sf.stream_filter_bytes.launches - before
+        outs.append(capsys.readouterr().out)
+    assert launched > 0
+
+    def summary(out):
+        return (re.search(r"→ (\[[0-9, ]*\]) per replica", out).group(1),
+                re.search(r"→ (\d+) deliveries", out).group(1),
+                re.search(r"generated (\d+) tokens", out).group(1))
+
+    assert summary(outs[1]) == summary(outs[0])

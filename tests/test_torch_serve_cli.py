@@ -9,10 +9,17 @@ the continuous loop on a ``replay`` trace delivers the same queues with
 nothing shed.  With ``data_shards=2`` the stage runs on a mesh and
 routes bytes through its pipelined route; those routes are held to the
 JAX package's unsharded routes, since the JAX CLI's own 2-D byte routes
-fail on this JAX version.  The JAX CLI's ``main`` generates with the LM
-substrate (ROADMAP item 14) and gets no twin.  Exact equality.
+fail on this JAX version.  The port's ``main`` runs through
+``sys.argv`` with ``--device cpu`` on the argv cases that pass in the
+reference (not its 2-D or data-shard byte cases): its printed replica
+queues, churn deliveries and generated token count equal the JAX
+``main``'s.  Exact equality.
 """
+import contextlib
+import io
 import json
+import re
+import sys
 from types import SimpleNamespace
 
 import pytest
@@ -193,3 +200,88 @@ def test_route_requests_helper_matches_stage_routing():
     got = serve.route_requests(stage, payloads, ingest="bytes", raw=raw)
     assert [len(q) for q in got] == [len(q) for q in _reference_queues()]
     assert got == _reference_queues()
+
+
+# ------------------------------------------------------------------- main
+MAIN_ARGS = ["--requests", str(REQUESTS), "--replicas", str(REPLICAS),
+             "--batch", str(BATCH), "--prompt-len", "4", "--gen-len", "2"]
+
+
+def _run(main, monkeypatch, capsys, extra) -> str:
+    monkeypatch.setattr(sys, "argv", ["serve"] + MAIN_ARGS + list(extra))
+    main()
+    return capsys.readouterr().out
+
+
+def _summary(out: str) -> tuple:
+    """(replica queue sizes, churn deliveries, generated tokens) as
+    printed; the timings vary and are not compared."""
+    queues = re.search(r"→ \[([0-9, ]*)\] per replica", out)
+    churn = re.search(r"re-routed (\d+) requests → (\d+) deliveries", out)
+    gen = re.search(r"generated (\d+) tokens across (\d+) replicas", out)
+    assert queues and churn and gen, f"missing a line in:\n{out}"
+    return ([int(x) for x in queues.group(1).split(",")],
+            tuple(map(int, churn.groups())), tuple(map(int, gen.groups())))
+
+
+@pytest.fixture(scope="module")
+def jax_main_summary():
+    """The JAX ``main`` on the chip smoke's route, streaming over bytes."""
+    out = io.StringIO()
+    with pytest.MonkeyPatch.context() as mp, contextlib.redirect_stdout(out):
+        mp.setattr(sys, "argv", ["serve"] + MAIN_ARGS + [
+            "--filter-engine", "streaming", "--ingest", "bytes"])
+        jax_serve.main()
+    return _summary(out.getvalue())
+
+
+@pytest.mark.parametrize("extra", [
+    ["--filter-engine", "streaming", "--ingest", "bytes"],
+    ["--ingest", "bytes"],
+    ["--query-shards", "2"],
+    ["--arrival", "replay", "--rate", "2000"],
+    ["--arrival", "burst", "--rate", "800", "--deadline-ms", "20",
+     "--max-inflight", "4", "--queue-cap", "32"],
+    ["--arrival", "poisson", "--rate", "4000", "--queue-cap", "2",
+     "--overload", "block"],
+], ids=["streaming-bytes", "bytes", "qshards", "replay", "burst", "block"])
+def test_main_equals_jax_main(extra, monkeypatch, capsys, jax_main_summary):
+    """Every flag set routes the deterministic workload to the same
+    queues (nothing is shed), so each run prints the JAX run's queues,
+    churn deliveries and token count."""
+    out = _run(serve.main, monkeypatch, capsys, extra + ["--device", "cpu"])
+    assert f"[serve] routed {REQUESTS} requests" in out
+    assert _summary(out) == jax_main_summary
+    queues, _, (n_tok, replicas) = jax_main_summary
+    assert n_tok == 2 * sum(queues) and replicas == REPLICAS
+    if "--arrival" in extra:
+        assert f"{REQUESTS}/{REQUESTS} served" in out
+        assert "shed 0 = 0.0%" in out
+
+
+def test_main_latency_json(monkeypatch, capsys, tmp_path):
+    path = tmp_path / "lat.json"
+    _run(serve.main, monkeypatch, capsys,
+         ["--arrival", "replay", "--rate", "2000", "--latency-json",
+          str(path), "--device", "cpu"])
+    data = json.loads(path.read_text())
+    assert data["arrival"] == "replay"
+    assert len(data["latencies_ms"]) == data["slo"]["completed"] == REQUESTS
+
+
+def test_main_without_a_card_raises(monkeypatch, capsys):
+    """No ``--device``: the card, which must be there; no CPU fallback."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        _run(serve.main, monkeypatch, capsys, [])
+
+
+def test_main_flags_are_the_jax_flags_and_device():
+    """The JAX CLI's flags one for one, and ``--device``."""
+    import inspect
+
+    def flags(fn):
+        return set(re.findall(r'add_argument\("(--[a-z-]+)"',
+                              inspect.getsource(fn)))
+
+    assert flags(serve.main) == flags(jax_serve.main) | {"--device"}
