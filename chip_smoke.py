@@ -144,11 +144,36 @@ printed as it runs; any failure exits non-zero:
    then decode equal to the full forward and to the CPU port's forward;
    (d) ``repro_torch.launch.serve.main`` once through ``sys.argv``
    (``--filter-engine streaming --ingest bytes``, the rest its defaults);
-12. the end-to-end line, one ``{"kernels": [...]}`` line, the card line,
+12. training: (a) every architecture of the registry, reduced, and
+   qwen3-0.6b reduced with ``remat`` and 8-token CE chunks (the chunked
+   cross-entropy and its recompute), on the card against the port on the
+   CPU (the same parameters, float32, TF32 off): ``train_loss`` within
+   1e-5 relative, every gradient leaf within ``rtol=1e-4, atol=1e-6``,
+   3 AdamW and 3 Adafactor train steps' losses within 1e-5 relative, and
+   the parameters and states after 3 updates of each optimizer from the
+   same gradients within 1e-5; the parameters after the 3 full train
+   steps are read, not held (see :func:`train_zoo`), with the gradient
+   on each device of the element that moved most; (b) qwen3-0.6b at its
+   published width (``remat``, ``ce_chunk`` 2,048, AdamW) on the training
+   CLI's ingest, ``build_filtered_pipeline(batch=2, seq_len=4096,
+   ingest="bytes")`` (K5, K6), whose routed documents with their matched
+   profiles, kept payloads, token buffer and first batches must equal
+   the CPU port's: 4 steps through ``run_training`` with a checkpoint every 2,
+   then a restart from the step-2 checkpoint that must replay steps 3-4's
+   losses bit for bit (``torch.use_deterministic_algorithms``); step ms
+   (CUDA events), tokens/s, the step's FLOP count and rate, peak device
+   memory, kernels a step and the card's busy share (``torch.profiler``),
+   ``save`` s, the time ``save_async`` blocks and ``restore`` s; (c) the
+   training CLI's ``main`` on the card, ``--data-filter --data-ingest
+   bytes`` (K5, K6) and ``events`` (K6), 6 steps, a checkpoint every 3:
+   the ingest it built equal to the CPU port's as in (b), the loss
+   falling;
+13. the end-to-end line, one ``{"kernels": [...]}`` line, the card line,
    and the result line.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -238,6 +263,18 @@ LM_REQUESTS, LM_REPLICAS, LM_BATCH = 32, 2, 8
 LM_PROMPT, LM_NEW, LM_CHECK_TOKENS = 128, 32, 16
 LM_TOL = 1e-3
 LM_ZOO_BATCH, LM_ZOO_SEQ, LM_ZOO_TOL = 2, 16, 2e-4
+
+# phase 12, training: the reduced registry at batch 2, 16 tokens (and
+# reduced qwen3-0.6b in two 8-token CE chunks), card against CPU; qwen3-0.6b at its published width on the training CLI's
+# byte ingest, batch 2 of 4,096 tokens (two 2,048-token CE chunks), 4
+# steps with a checkpoint every 2, restarted from step 2; the CLI's main
+# for 6 steps, a checkpoint every 3
+TRAIN_ZOO_BATCH, TRAIN_ZOO_SEQ, TRAIN_ZOO_STEPS = 2, 16, 3
+TRAIN_ZOO_CE_CHUNK = 8
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, TRAIN_GRAD_ATOL = 1e-5, 1e-4, 1e-6
+TRAIN_PARAM_TOL = 1e-5
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_CKPT_EVERY = 2, 4096, 4, 2
+TRAIN_CLI_STEPS, TRAIN_CLI_CKPT_EVERY = 6, 3
 
 # card peaks (H100 SXM data sheet): HBM bytes/s, the 32-bit non-tensor
 # rate, which bounds the kernels' integer bit operations and K6's float32
@@ -2401,8 +2438,9 @@ def decode_bound_ms(cfg, param_bytes: int, cache_dtype) -> float:
         / HBM_BYTES_PER_S * 1e3
 
 
-def device_busy_us(fn) -> tuple[float, int] | None:
-    """(kernel microseconds, kernel count) of ``fn()`` from a
+def device_busy_us(fn) -> tuple[float, int, list] | None:
+    """(kernel microseconds, kernel count, the 6 kernel names of most
+    time with their microseconds and counts) of ``fn()`` from a
     ``torch.profiler`` trace of the card, or None where the trace holds
     no device time."""
     from torch.autograd import DeviceType
@@ -2414,7 +2452,13 @@ def device_busy_us(fn) -> tuple[float, int] | None:
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy = sum(e.time_range.elapsed_us() for e in kernels)
-    return (busy, len(kernels)) if busy > 0 else None
+    by_name: dict = {}
+    for e in kernels:
+        us, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    top = sorted(((k[:70], us, n) for k, (us, n) in by_name.items()),
+                 key=lambda r: -r[1])[:6]
+    return (busy, len(kernels), top) if busy > 0 else None
 
 
 def lm_zoo(dev) -> dict:
@@ -2658,6 +2702,499 @@ def lm_phase(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 12
+class StoreTimes:
+    """For the length of a ``with``, time ``CheckpointStore``'s calls on
+    the host clock: ``save_async`` (what the loop waits for), its copy of
+    the tree to the host (``_flatten``), the write on its thread
+    (``_write``) and ``restore``.  The calls run as they would."""
+
+    NAMES = ("save_async", "_write", "restore")
+
+    def __enter__(self) -> dict:
+        from repro_torch.checkpoint import store
+
+        self.store = store
+        self.orig = {k: getattr(store.CheckpointStore, k) for k in self.NAMES}
+        self.flatten = store._flatten
+        times: dict = {k: [] for k in self.NAMES + ("_flatten",)}
+
+        def timed(name, fn):
+            def wrapper(*args, **kwargs):
+                t = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    times[name].append(time.perf_counter() - t)
+            return wrapper
+
+        for k, fn in self.orig.items():
+            setattr(store.CheckpointStore, k, timed(k, fn))
+        store._flatten = timed("_flatten", self.flatten)
+        return times
+
+    def __exit__(self, *exc) -> None:
+        for k, fn in self.orig.items():
+            setattr(self.store.CheckpointStore, k, fn)
+        self.store._flatten = self.flatten
+
+
+class RoutedRecord:
+    """For the length of a ``with``, keep every document that a
+    ``FilterStage`` routes (what ``_fan_out`` returns): its index, its
+    shard and the profiles it matched, which are the filter's
+    per-profile verdicts.  The stage runs as it would."""
+
+    def __enter__(self) -> list:
+        from repro_torch.data.filter_stage import FilterStage
+
+        self.cls, orig = FilterStage, FilterStage._fan_out
+        self.orig = orig
+        rows: list = []
+
+        def fan_out(stage, *args, **kwargs):
+            routed = orig(stage, *args, **kwargs)
+            rows.extend((r.doc_index, r.shard,
+                         tuple(int(q) for q in r.matched_profiles))
+                        for r in routed)
+            return routed
+
+        FilterStage._fan_out = fan_out
+        return rows
+
+    def __exit__(self, *exc) -> None:
+        self.cls._fan_out = self.orig
+
+
+def same_ingest(what: str, pipe, routed: list, host, host_routed: list,
+                steps: int) -> str:
+    """Hold a training ingest built on the card (K5, K6) to the CPU port's
+    (their plain versions) on the same corpus, exactly: every routed
+    document with its matched profiles, the kept payloads (byte ingest),
+    the token buffer and the first ``steps`` batches."""
+    first = next(((a, b) for a, b in zip(routed, host_routed) if a != b),
+                 None)
+    check(routed and routed == host_routed,
+          f"{what}: the card routed {len(routed)} documents with "
+          f"{sum(len(r[2]) for r in routed)} (document, profile) matches, "
+          f"the CPU port {len(host_routed)} with "
+          f"{sum(len(r[2]) for r in host_routed)}; first difference "
+          f"(document, shard, profiles) {first}")
+    check(pipe.payloads == host.payloads,
+          f"{what}: the kept payloads differ from the CPU port's")
+    check(np.array_equal(pipe._buf, host._buf),
+          f"{what}: the token buffer differs from the CPU port's")
+    for i in range(steps):
+        got, want = pipe.batch_at(i), host.batch_at(i)
+        check(got.keys() == want.keys()
+              and all(np.array_equal(got[k], want[k]) for k in got),
+              f"{what}: batch {i} differs from the CPU port's")
+    return (f"{len(routed)} routed documents with "
+            f"{sum(len(r[2]) for r in routed)} (document, profile) matches, "
+            + ("the kept payloads, " if pipe.payloads is not None else "")
+            + f"{len(pipe._buf)} byte tokens and the "
+            f"first {steps} batches equal to the CPU port's")
+
+
+def train_flops(cfg, b: int, s: int) -> float:
+    """The products of one training step of a dense decoder with remat
+    and the chunked CE: the forward F (every layer's projections and MLP,
+    2 operations a weight a token; attention scores and values, 4·b·h·s²·dh
+    a layer, the causal half not skipped; the unembedding 2·b·s·d·V),
+    then the backward pass 2·F, the layers' recompute F, and the CE
+    chunks' recompute of the unembedding: 4·F in all.  Norms, RoPE, the
+    softmax and the optimizer are not counted."""
+    d, h, kv, dh, f = (cfg.d_model, cfg.n_heads_eff, cfg.n_kv_eff,
+                       cfg.d_head, cfg.d_ff)
+    per_layer = d * h * dh + 2 * d * kv * dh + h * dh * d + 3 * d * f
+    tokens = b * s
+    forward = cfg.n_layers * (2 * tokens * per_layer + 4 * b * h * s * s * dh)
+    forward += 2 * tokens * d * cfg.vocab_eff
+    return 4.0 * forward
+
+
+def train_zoo(dev) -> dict:
+    """(a) every architecture, reduced, on the card against the CPU, and
+    reduced qwen3-0.6b once more with ``remat`` and 8-token CE chunks (the
+    chunked cross-entropy, each chunk recomputed in the backward): the
+    loss and every gradient; then, for each optimizer, 3 train steps on
+    each (their losses compared) and 3 optimizer updates on each from the
+    same gradients, the CPU's (the parameters and states compared).
+    Every failure of every architecture is listed, with its leaf, before
+    the phase fails.
+
+    The parameters after the 3 full train steps are read, not held: both
+    optimizers scale a gradient element (AdamW: g / (sqrt(v) + eps)) or a
+    row and column (Adafactor's factored second moment) to about ±1
+    whatever its size, so where a gradient is zero in exact arithmetic
+    (qwen1.5's key bias: a bias on every key of a query shifts its scores
+    alike) each device's rounding noise moves the parameter by up to lr,
+    in its own direction.  For the element that moved most, the row keeps
+    its gradient at each step on each device, the evidence for or against
+    that reading.
+    """
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.train import make_optimizer, make_train_step
+    from repro_torch.train.train_step import grads_and_metrics
+    from repro_torch.tree import (key_of, tree_flatten_with_path,
+                                        tree_leaves, tree_map,
+                                        tree_unflatten)
+
+    def loss_and_grads(cfg, params, batch):
+        leaves = [x.detach().requires_grad_() for x in tree_leaves(params)]
+        loss, _ = T.train_loss(cfg, tree_unflatten(params, leaves), batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return loss.item(), [torch.zeros_like(x) if g is None else g
+                             for g, x in zip(grads, leaves)]
+
+    def copy_to(tree, where):
+        return tree_map(lambda x: x.to(where, copy=True), tree)
+
+    def recording(opt, grads):
+        """``opt`` whose update first keeps a copy of the gradients."""
+        def update(g, state, params, step):
+            grads.append([x.detach().cpu().clone() for x in tree_leaves(g)])
+            return opt.update(g, state, params, step)
+        return dataclasses.replace(opt, update=update)
+
+    cases = [(name, get_config(name, reduced=True)) for name in ARCHS]
+    cases.append((f"{LM_ARCH} ce_chunk {TRAIN_ZOO_CE_CHUNK} remat",
+                  get_config(LM_ARCH, reduced=True).with_(
+                      ce_chunk=TRAIN_ZOO_CE_CHUNK, remat=True)))
+    out, failures = {}, []
+    for name, cfg in cases:
+        host = T.init_model(cfg, torch.Generator().manual_seed(0))
+        keys = [key_of(p) for p, _ in tree_flatten_with_path(host)]
+        rng = np.random.default_rng(0)
+        b, s = TRAIN_ZOO_BATCH, TRAIN_ZOO_SEQ
+        tok = rng.integers(0, cfg.vocab, (b, s + 1)).astype(np.int32)
+        batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+        key = {"vlm": "patches", "encdec": "frames"}.get(cfg.family)
+        if key:
+            batch[key] = rng.normal(
+                size=(b, cfg.frontend_len, cfg.d_model)).astype(np.float32)
+        host_batch = {k: torch.from_numpy(np.array(v))
+                      for k, v in batch.items()}
+        card_batch = {k: v.to(dev) for k, v in host_batch.items()}
+        loss_c, grads_c = loss_and_grads(cfg, tree_to(host, dev), card_batch)
+        loss_h, grads_h = loss_and_grads(cfg, host, host_batch)
+        rel = abs(loss_c / loss_h - 1)
+        if rel > TRAIN_LOSS_RTOL:
+            failures.append(f"{name}: the card's loss {loss_c} is "
+                            f"{rel:.2e} from the CPU's {loss_h}")
+        grad_err = 0.0
+        for i, (gc, gh) in enumerate(zip(grads_c, grads_h)):
+            gc = gc.cpu()
+            err = float((gc - gh).abs().max())
+            grad_err = max(grad_err, err)
+            if not torch.allclose(gc, gh, rtol=TRAIN_GRAD_RTOL,
+                                  atol=TRAIN_GRAD_ATOL):
+                failures.append(f"{name}: the gradient of {keys[i]} "
+                                f"differs from the CPU's by {err}")
+        row = {"loss_rel": rel, "grad_err": grad_err}
+        for opt_name in ("adamw", "adafactor"):
+            # 3 train steps on each device: the losses; the parameters
+            # and each step's gradients read
+            losses, finals, seen = [], [], []
+            for where in (dev, "cpu"):
+                params = copy_to(host, where)
+                grads: list = []
+                opt = recording(make_optimizer(opt_name), grads)
+                state = opt.init(params)
+                step = make_train_step(cfg, opt)
+                run = []
+                for i in range(TRAIN_ZOO_STEPS):
+                    params, state, m = step(params, state, batch,
+                                            np.int32(i))
+                    run.append(m["loss"].item())
+                losses.append(run)
+                finals.append([x.cpu() for x in tree_leaves(params)])
+                seen.append(grads)
+            step_rel = max(abs(c / h - 1) for c, h in zip(*losses))
+            if step_rel > TRAIN_LOSS_RTOL:
+                failures.append(f"{name}: {opt_name} step losses on the "
+                                f"card {losses[0]}, on the CPU {losses[1]}")
+            diffs = [(c - h).abs() for c, h in zip(*finals)]
+            leaf = int(np.argmax([float(x.max()) for x in diffs]))
+            at = int(diffs[leaf].argmax())
+            row[f"{opt_name}_full"] = {
+                "leaf": keys[leaf],
+                "element": at,
+                "diff": float(diffs[leaf].flatten()[at]),
+                "grad_card": [float(g[leaf].flatten()[at]) for g in seen[0]],
+                "grad_cpu": [float(g[leaf].flatten()[at]) for g in seen[1]],
+                "leaf_grad_max": float(seen[1][0][leaf].abs().max())}
+            # 3 updates on each device from the CPU's gradients
+            opt = make_optimizer(opt_name)
+            p_c, p_h = copy_to(host, dev), copy_to(host, "cpu")
+            s_c, s_h = opt.init(p_c), opt.init(p_h)
+            for i in range(TRAIN_ZOO_STEPS):
+                g, _ = grads_and_metrics(cfg, p_h, batch)
+                p_c, s_c = opt.update(copy_to(g, dev), s_c, p_c, np.int32(i))
+                p_h, s_h = opt.update(g, s_h, p_h, np.int32(i))
+            errs = [float((c.cpu() - h).abs().max()) for c, h in zip(
+                tree_leaves((p_c, s_c)), tree_leaves((p_h, s_h)))]
+            names = keys + [f"state/{key_of(p)}"
+                            for p, _ in tree_flatten_with_path(s_h)]
+            worst = int(np.argmax(errs))
+            if errs[worst] > TRAIN_PARAM_TOL:
+                failures.append(
+                    f"{name}: after {TRAIN_ZOO_STEPS} {opt_name} updates "
+                    f"from the same gradients the card's {names[worst]} is "
+                    f"{errs[worst]} from the CPU's")
+            row[opt_name] = errs[worst]
+            row[f"{opt_name}_step_loss_rel"] = step_rel
+        out[name] = row
+    check(not failures, "(a) " + "; ".join(failures))
+    return out
+
+
+def train_phase(dev) -> dict:
+    import contextlib
+    import io
+    import re
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import transformer as T
+    from repro_torch.train import make_optimizer, make_train_step
+    from repro_torch.train.loop import LoopConfig, run_training
+    from repro_torch.tree import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    say("phase 12: training; (a) every architecture, reduced, on the card "
+        "against the CPU, float32, TF32 off")
+    out: dict = {}
+    t = time.perf_counter()
+    out["zoo"] = zoo = train_zoo(dev)
+    worst = {k: max(v[k] for v in zoo.values())
+             for k in next(iter(zoo.values())) if not k.endswith("_full")}
+    step_rel = max(worst["adamw_step_loss_rel"],
+                   worst["adafactor_step_loss_rel"])
+    say(f"(a) in {time.perf_counter() - t:.1f} s: loss within "
+        f"{worst['loss_rel']:.1e} relative (tolerance {TRAIN_LOSS_RTOL}), "
+        f"gradients within {worst['grad_err']:.1e} absolute (rtol "
+        f"{TRAIN_GRAD_RTOL}, atol {TRAIN_GRAD_ATOL}); {TRAIN_ZOO_STEPS} "
+        f"train steps' losses within {step_rel:.1e} relative; after {TRAIN_ZOO_STEPS} updates from the same "
+        f"gradients the parameters and states within {worst['adamw']:.1e} "
+        f"(AdamW), {worst['adafactor']:.1e} (Adafactor) (tolerance "
+        f"{TRAIN_PARAM_TOL})")
+    # the parameters after the full train steps, read: every element past
+    # TRAIN_PARAM_TOL, else the largest, with its gradient at each step
+    full = [(name, opt_name, row[f"{opt_name}_full"])
+            for name, row in zoo.items() for opt_name in ("adamw",
+                                                          "adafactor")]
+    shown = ([x for x in full if x[2]["diff"] > TRAIN_PARAM_TOL]
+             or [max(full, key=lambda x: x[2]["diff"])])
+    for name, opt_name, r in shown:
+        say(f"(a) {name}, {TRAIN_ZOO_STEPS} {opt_name} train steps: "
+            f"{r['leaf']}[{r['element']}] {r['diff']:.3g} from the CPU's "
+            f"(read, not held); its gradient at each step on the card "
+            f"{[f'{g:.3g}' for g in r['grad_card']]}, on the CPU "
+            f"{[f'{g:.3g}' for g in r['grad_cpu']]}; the leaf's largest "
+            f"|gradient| at step 0 {r['leaf_grad_max']:.3g}")
+
+    # (b) qwen3-0.6b at its published width on the CLI's byte ingest
+    cfg = get_config(LM_ARCH)
+    say(f"(b) {LM_ARCH} at its published width: {cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, vocab {cfg.vocab}, remat {cfg.remat}, "
+        f"ce_chunk {cfg.ce_chunk}, {cfg.optimizer}; batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens")
+    logs: list = []
+    with RoutedRecord() as routed:
+        pipe, got = drive("(b) build_filtered_pipeline, bytes",
+                          lambda: train_cli.build_filtered_pipeline(
+                              TRAIN_BATCH, TRAIN_SEQ, log=logs.append,
+                              ingest="bytes", device=str(dev)),
+                          {"K5", "K6"})
+    out["pipeline_launches"] = got
+    with RoutedRecord() as host_routed:
+        host_pipe = train_cli.build_filtered_pipeline(
+            TRAIN_BATCH, TRAIN_SEQ, log=lambda _: None, ingest="bytes",
+            device="cpu")
+    say(f"(b) {logs[0]}: "
+        + same_ingest("(b)", pipe, routed, host_pipe, host_routed,
+                      TRAIN_STEPS + 1))
+    del host_pipe
+    params = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0))
+    opt = make_optimizer(cfg.optimizer)
+    state = opt.init(params)
+    step = make_train_step(cfg, opt)
+    events: list = []
+
+    def timed_step(p, s, batch, i):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        res = step(p, s, batch, i)
+        ev[1].record()
+        events.append(ev)
+        return res
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    saved = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    try:
+        out["disk_free_gb"] = shutil.disk_usage(work).free / 1e9
+        loop = LoopConfig(total_steps=TRAIN_STEPS,
+                          ckpt_every=TRAIN_CKPT_EVERY,
+                          ckpt_dir=os.path.join(work, "run"), log_every=1)
+        # torch refuses deterministic cuBLAS products unless this is set;
+        # the run is one stream, on which cuBLAS is deterministic anyway
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        torch.use_deterministic_algorithms(True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with StoreTimes() as ckpt:
+            t = time.perf_counter()
+            full = run_training(cfg, loop, params=params, opt_state=state,
+                                step_fn=timed_step, batch_fn=pipe.batch_at,
+                                log=say)
+            torch.cuda.synchronize()
+            out["run_s"] = time.perf_counter() - t
+            out["peak_bytes"] = torch.cuda.max_memory_allocated()
+            out["step_ms"] = [a.elapsed_time(b) for a, b in events]
+            check(len(full.losses) == TRAIN_STEPS
+                  and all(np.isfinite(full.losses)),
+                  f"(b) the run logged losses {full.losses}")
+            check(full.losses[-1] < full.losses[0],
+                  f"(b) the loss did not fall: {full.losses}")
+            # a crash before step 4's checkpoint: restart from step 2
+            shutil.rmtree(os.path.join(loop.ckpt_dir,
+                                       f"step_{TRAIN_STEPS:08d}"))
+            t = time.perf_counter()
+            again = run_training(cfg, loop, params=params, opt_state=state,
+                                 step_fn=step, batch_fn=pipe.batch_at,
+                                 log=say)
+            torch.cuda.synchronize()
+            out["resume_s"] = time.perf_counter() - t
+        check(again.resumed_from == TRAIN_CKPT_EVERY
+              and again.final_step == TRAIN_STEPS,
+              f"(b) the restart resumed from {again.resumed_from} and "
+              f"ended at {again.final_step}")
+        check(again.losses == full.losses[TRAIN_CKPT_EVERY:],
+              f"(b) the restart's losses {again.losses} are not the "
+              f"uninterrupted run's {full.losses[TRAIN_CKPT_EVERY:]}")
+        torch.use_deterministic_algorithms(False)
+        out["losses"] = full.losses
+        out["ckpt"] = ckpt
+        out["ckpt_bytes"] = sum(x.numel() * x.element_size()
+                                for x in tree_leaves((params, state)))
+        # kernels of one more step, and the card's busy time in it
+        batch = pipe.batch_at(TRAIN_STEPS)
+        busy = device_busy_us(lambda: step(params, state, batch,
+                                           np.int32(TRAIN_STEPS)))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if saved is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = saved
+        shutil.rmtree(work, ignore_errors=True)
+    steady = sorted(out["step_ms"][1:])
+    out["steady_step_ms"] = steady[len(steady) // 2]
+    out["tokens_per_s"] = TRAIN_BATCH * TRAIN_SEQ / out["steady_step_ms"] \
+        * 1e3
+    out["flop"] = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    out["tflop_per_s"] = out["flop"] / out["steady_step_ms"] / 1e9
+    out["busy_ms"] = busy[0] / 1e3 if busy else None
+    out["kernels_a_step"] = busy[1] if busy else None
+    out["top_kernels"] = busy[2] if busy else None
+    if busy:
+        busy_text = (f"{out['kernels_a_step']} kernels a step, the card busy "
+                     f"{out['busy_ms']:.1f} ms "
+                     f"({out['busy_ms'] / out['steady_step_ms']:.1%} of a "
+                     f"step; torch.profiler, one step), most of it in "
+                     + "; ".join(f"{k} {us / 1e3:.1f} ms x{n}"
+                                 for k, us, n in busy[2]))
+    else:
+        busy_text = ("kernels and busy share not measured (the profiler "
+                     "trace held no device time)")
+
+    def secs(xs):
+        return ", ".join(f"{x:.2f}" for x in xs) + " s"
+
+    say(f"(b) losses {full.losses} (replayed bit for bit after the restart "
+        f"from step {TRAIN_CKPT_EVERY}: {again.losses}); steps "
+        + ", ".join(f"{x:.1f}" for x in out["step_ms"])
+        + f" ms (CUDA events; median after the first "
+        f"{out['steady_step_ms']:.1f} ms): {out['tokens_per_s']:.1f} "
+        f"tokens/s, {out['flop'] / 1e12:.2f} TFLOP a step = "
+        f"{out['tflop_per_s']:.2f} TFLOP/s; peak device memory "
+        f"{out['peak_bytes'] / 2**30:.2f} GiB; {busy_text}; run "
+        f"{out['run_s']:.1f} s, restart {out['resume_s']:.1f} s (host "
+        f"clock); checkpoints of {out['ckpt_bytes'] / 1e9:.2f} GB "
+        f"(the run's 3 saves, host clock): save_async blocks "
+        f"{secs(ckpt['save_async'])}, of which the copy to the host "
+        f"{secs(ckpt['_flatten'])} (the rest waits for the previous "
+        f"write), the write on its thread {secs(ckpt['_write'])}; save "
+        f"(copy + write) "
+        f"{secs(a + b for a, b in zip(ckpt['_flatten'], ckpt['_write']))};"
+        f" restore {secs(ckpt['restore'])}; {out['disk_free_gb']:.0f} GB "
+        f"free where it wrote")
+    del params, state, pipe
+    torch.cuda.empty_cache()
+
+    # (c) the training CLI's main on the card, each ingest
+    out["cli_launches"] = {}
+    for ingest, want in (("bytes", {"K5", "K6"}), ("events", {"K6"})):
+        ck = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+        argv = ["train", "--data-filter", "--data-ingest", ingest,
+                "--steps", str(TRAIN_CLI_STEPS), "--ckpt-every",
+                str(TRAIN_CLI_CKPT_EVERY), "--ckpt-dir", ck]
+        text = io.StringIO()
+        saved_argv = sys.argv
+        sys.argv = argv
+        # keep the pipeline main builds, and the arguments it built it with
+        built: list = []
+        build = train_cli.build_filtered_pipeline
+
+        def keep(*args, **kwargs):
+            built.append((build(*args, **kwargs), args, kwargs))
+            return built[-1][0]
+
+        train_cli.build_filtered_pipeline = keep
+        t = time.perf_counter()
+        try:
+            with RoutedRecord() as routed, contextlib.redirect_stdout(text):
+                _, got = drive(f"(c) launch.train.main, {ingest}",
+                               train_cli.main, want)
+        finally:
+            train_cli.build_filtered_pipeline = build
+            sys.argv = saved_argv
+            shutil.rmtree(ck, ignore_errors=True)
+        main_s = time.perf_counter() - t
+        out["cli_launches"][ingest] = got
+        printed = text.getvalue()
+        print(printed.strip(), flush=True)
+        check(len(built) == 1, f"(c) {ingest}: main built {len(built)} "
+              f"pipelines")
+        pipe, args, kwargs = built[0]
+        host_logs: list = []
+        with RoutedRecord() as host_routed:
+            host_pipe = build(*args, **{**kwargs, "device": "cpu",
+                                        "log": host_logs.append})
+        kept = re.search(r"kept (\d+/\d+)", printed)
+        check(kept is not None and host_logs[0] in printed,
+              f"(c) {ingest}: main kept {kept and kept.group(1)}; the CPU "
+              f"port: {host_logs[0]}")
+        same = same_ingest(f"(c) {ingest}", pipe, routed, host_pipe,
+                           host_routed, TRAIN_CLI_STEPS)
+        m = re.search(r"done at step (\d+); loss ([0-9.]+) → ([0-9.]+)",
+                      printed)
+        check(m is not None and int(m.group(1)) == TRAIN_CLI_STEPS
+              and float(m.group(3)) < float(m.group(2)),
+              f"(c) {ingest}: main's loss did not fall over "
+              f"{TRAIN_CLI_STEPS} steps: {m and m.group(0)}")
+        say(f"(c) {ingest}: {main_s:.2f} s, kept {kept.group(1)}; {same}; "
+            f"loss {m.group(2)} → {m.group(3)}, launches {got}")
+    return out
+
+
 # ------------------------------------------------------------------- main
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2698,10 +3235,11 @@ def main() -> int:
     mesh = mesh_phase(dtd, d, qs, bufs, run, short, level_ref, serving,
                       sharded, dev)
     lm = lm_phase(dev)
+    train = train_phase(dev)
 
     s = run["stats"]
     card = card_line()
-    say(f"phase 12: end to end on {card}: {len(run['payloads'])} documents, "
+    say(f"phase 13: end to end on {card}: {len(run['payloads'])} documents, "
         f"{run['n_bytes']} bytes in {run['e2e_s']:.3f} s = "
         f"{len(run['payloads']) / run['e2e_s']:.1f} docs/s, "
         f"{run['n_bytes'] / run['e2e_s'] / 1e6:.1f} MB/s (host clock around "
@@ -2737,6 +3275,11 @@ def main() -> int:
         f"decode {lm['decode_ms']:.3f} ms a step (bound "
         f"{lm['decode_bound_ms']:.3f} ms), peak "
         f"{lm['peak_bytes'] / 2**30:.2f} GiB"
+        + f"; training ({LM_ARCH}, {TRAIN_BATCH} x {TRAIN_SEQ}): "
+        f"{train['steady_step_ms']:.1f} ms a step, "
+        f"{train['tokens_per_s']:.1f} tokens/s, "
+        f"{train['tflop_per_s']:.2f} TFLOP/s, peak "
+        f"{train['peak_bytes'] / 2**30:.2f} GiB"
         + f"; serve loop: sparse pub-sub p50 "
         f"{serving['sparse']['p50_ms']:.3f} / p99 "
         f"{serving['sparse']['p99_ms']:.3f} ms at "
@@ -2781,6 +3324,10 @@ def main() -> int:
         # the serving CLI's main (whose churn re-routes events: K1)
         row["lm_launches"] = lm["launches"][key]
         row["lm_main_launches"] = lm["main_launches"][key]
+        # phase 12: the training path's ingest, (b)'s pipeline and (c)'s
+        # two CLI runs (bytes: K5 and K6; events: K6)
+        row["train_launches"] = train["pipeline_launches"][key] + sum(
+            v[key] for v in train["cli_launches"].values())
         row["mesh_positions"] = mesh["positions"]
         if key == "K2":
             row["mesh_position_ms"] = mesh["position_ms"]

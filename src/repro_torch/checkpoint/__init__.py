@@ -1,7 +1,3 @@
-"""The crash-safe compiled-plan cache (:class:`PlanCache`).
-
-``CheckpointStore``, the JAX package's training checkpoints, flattens
-pytrees with JAX and serves only the LM-training substrate, so it comes
-with that substrate (ROADMAP queue 1 item 14).
-"""
-from .store import PlanCache  # noqa: F401
+"""Training checkpoints (:class:`CheckpointStore`, the JAX store's format)
+and the crash-safe compiled-plan cache (:class:`PlanCache`)."""
+from .store import CheckpointStore, PlanCache  # noqa: F401

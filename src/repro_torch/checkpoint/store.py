@@ -1,24 +1,38 @@
 # Copy of src/repro/checkpoint/store.py:46-121 and :225-277 (the port imports
-# nothing of the JAX package), with PlanCache.load added.
-"""The crash-safe plan cache of the port.
+# nothing of the JAX package), with PlanCache.load added; CheckpointStore
+# (:123-222) ported over the port's own pytrees.
+"""Checkpoints and the crash-safe plan cache of the port.
 
 Layout per entry::
 
-    <dir>/plan_<key>/
-        manifest.json    # keys, engine name, plan metadata
-        arrays.npz       # one entry per plan table
+    <dir>/step_000123/   or   <dir>/plan_<key>/
+        manifest.json    # keys, shapes, dtypes (a step: step, config)
+        arrays.npz       # one entry per leaf / plan table
+    <dir>/LATEST         # a checkpoint's atomically updated pointer
 
 Entry contents are fsynced, the entry directory is written as
 ``<name>.tmp`` then ``os.rename``\\ d (POSIX atomic), and a pointer goes
 through an fsynced temp file and ``os.replace``: a crash at any point
-leaves the old entry or the new one, never a torn entry.  A torn or
-unreadable entry reads as a miss and is overwritten by the next ``put``.
+leaves the old entry or the new one, never a torn entry.
+
+:class:`CheckpointStore` keeps training state (any tree of tensors,
+such as ``(params, opt_state)``).  Its format is the JAX store's byte for
+byte: the keys are the leaves' paths in JAX's leaf order
+(:mod:`repro_torch.tree`: ``"0/embed"``, ``"1/m/3"``), the arrays
+numpy's, the manifest's fields the same, so a step written by either
+package restores in the other.  ``restore_latest`` walks back to the
+newest intact step.  ``save_async`` copies every leaf to host memory
+before it returns (the port's optimizer updates parameters in place),
+then writes on a thread.  ``restore(..., device=)`` places the leaves on
+one device, where the JAX store takes shardings; a sharded restore
+waits for the port's multi-device LM parts.
 
 :class:`PlanCache` keeps compiled filter-plan tables under a content hash
 (:meth:`repro_torch.core.engines.base.FilterEngine.plan_cache_key`), so a
-cold start or a crash recovery skips the compile.  The port adds
-:meth:`PlanCache.load`, a ``get`` whose caller may refuse an entry (the
-engines rebuild a hit through the table checks of
+cold start or a crash recovery skips the compile.  A torn or unreadable
+entry reads as a miss and is overwritten by the next ``put``.  The port
+adds :meth:`PlanCache.load`, a ``get`` whose caller may refuse an entry
+(the engines rebuild a hit through the table checks of
 :mod:`repro_torch.convert`; an entry they refuse counts as a miss).
 """
 from __future__ import annotations
@@ -26,9 +40,13 @@ from __future__ import annotations
 import json
 import os
 import shutil
-from typing import Callable, TypeVar
+import threading
+from typing import Any, Callable, TypeVar
 
 import numpy as np
+import torch
+
+from ..tree import key_of, tree_flatten_with_path, tree_map_with_path
 
 T = TypeVar("T")
 
@@ -108,6 +126,102 @@ def _valid_entry(path: str) -> bool:
             return sorted(z.files) == sorted(manifest["keys"])
     except Exception:
         return False
+
+
+def _flatten(tree: Any) -> dict[str, np.ndarray]:
+    """Every leaf as a host numpy copy under its JAX key path (a copy even
+    of a CPU tensor, so later in-place updates leave it alone)."""
+    return {key_of(path): (leaf.detach().to("cpu", copy=True).numpy()
+                           if isinstance(leaf, torch.Tensor)
+                           else np.array(leaf))
+            for path, leaf in tree_flatten_with_path(tree)}
+
+
+def _tree_like(tree: Any, flat: dict[str, np.ndarray], device) -> Any:
+    def leaf(path, like):
+        key = key_of(path)
+        arr = flat[key]
+        if tuple(arr.shape) != tuple(like.shape):
+            raise ValueError(f"{key}: shape {arr.shape} != "
+                             f"{tuple(like.shape)}")
+        dev = device if device is not None else getattr(like, "device",
+                                                        "cpu")
+        return torch.from_numpy(arr).to(dev)
+    return tree_map_with_path(leaf, tree)
+
+
+class CheckpointStore:
+    def __init__(self, directory: str, keep: int = 3) -> None:
+        self.dir = directory
+        self.keep = keep
+        os.makedirs(directory, exist_ok=True)
+        self._thread: threading.Thread | None = None
+
+    # ------------------------------------------------------------- saving
+    def save(self, step: int, tree: Any, extra: dict | None = None) -> str:
+        flat = _flatten(tree)
+        return self._write(step, flat, extra or {})
+
+    def save_async(self, step: int, tree: Any,
+                   extra: dict | None = None) -> None:
+        self.wait()  # at most one outstanding write
+        flat = _flatten(tree)  # snapshot synchronously (device → host)
+        self._thread = threading.Thread(
+            target=self._write, args=(step, flat, extra or {}), daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+    def _write(self, step: int, flat: dict, extra: dict) -> str:
+        name = f"step_{step:08d}"
+        manifest = {
+            "step": step,
+            "keys": sorted(flat.keys()),
+            "shapes": {k: list(v.shape) for k, v in flat.items()},
+            "dtypes": {k: str(v.dtype) for k, v in flat.items()},
+            **extra,
+        }
+        final = _write_entry(self.dir, name, flat, manifest)
+        _write_pointer(self.dir, "LATEST", name)
+        self._gc()
+        return final
+
+    def _steps(self) -> list[str]:
+        return sorted(d for d in os.listdir(self.dir)
+                      if d.startswith("step_") and not d.endswith(".tmp"))
+
+    def _gc(self) -> None:
+        for d in self._steps()[:-self.keep]:
+            shutil.rmtree(os.path.join(self.dir, d), ignore_errors=True)
+
+    # ------------------------------------------------------------ restore
+    def latest_step(self) -> int | None:
+        for name in reversed(self._steps()):
+            if _valid_entry(os.path.join(self.dir, name)):
+                return int(name.split("_")[1])
+        return None
+
+    def restore(self, step: int, like: Any,
+                device: Any | None = None) -> tuple[Any, dict]:
+        """The step's tree in ``like``'s structure, each leaf checked
+        against ``like``'s shape and placed on ``device`` (``None``: the
+        device of ``like``'s leaf), and its manifest."""
+        d = os.path.join(self.dir, f"step_{step:08d}")
+        with open(os.path.join(d, "manifest.json")) as f:
+            manifest = json.load(f)
+        with np.load(os.path.join(d, "arrays.npz")) as z:
+            flat = {k: z[k] for k in z.files}
+        return _tree_like(like, flat, device), manifest
+
+    def restore_latest(self, like: Any, device: Any | None = None):
+        step = self.latest_step()
+        if step is None:
+            return None
+        tree, manifest = self.restore(step, like, device)
+        return step, tree, manifest
 
 
 # ------------------------------------------------------------- plan cache

@@ -19,7 +19,10 @@ another build produced:
 * :func:`model_params_from_numpy` — a model's parameter tree (the JAX
   package's after ``jax.tree.map(np.asarray, params)``), checked key for
   key against the port's :func:`~repro_torch.models.transformer.
-  init_model` tree.
+  init_model` tree;
+* :func:`opt_state_from_numpy` — an optimizer state (the JAX package's
+  flat lists of arrays), checked leaf for leaf against the port
+  optimizer's ``init`` of the same parameters.
 """
 from __future__ import annotations
 
@@ -34,6 +37,8 @@ from .core.xpath import parse
 from .kernels.stream_filter import check_block_tables
 from .models import transformer
 from .models.config import ModelConfig
+from .tree import (key_of, tree_flatten_with_path, tree_map,
+                         tree_map_with_path)
 
 #: the block tables the megakernels and the lane → query gather read
 BLOCK_TABLES = ("kb_tagmask", "kb_pw", "kb_pb", "kb_selfloop", "kb_init",
@@ -277,3 +282,34 @@ def model_params_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any],
         return out
 
     return carry(transformer.init_model(cfg, None), tree, "")
+
+
+def opt_state_from_numpy(opt, params: Any, tree: Any,
+                         device: str | torch.device) -> Any:
+    """An optimizer state as numpy arrays (the JAX package's, after
+    ``jax.tree.map(np.asarray, state)``: dicts of flat lists parallel to
+    the parameters' leaves) → the port's state for ``opt`` on ``device``.
+
+    The structure, every shape and every dtype must be those of
+    ``opt.init(params)`` (built on the meta device, so no memory); a
+    missing, extra or misshapen leaf raises ``ValueError`` naming its
+    path (``"m/3"``).
+    """
+    spec = opt.init(tree_map(lambda p: torch.empty(
+        p.shape, dtype=p.dtype, device="meta"), params))
+    want = dict(tree_flatten_with_path(spec))
+    got = dict(tree_flatten_with_path(tree))
+    missing = sorted(map(key_of, set(want) - set(got)))
+    extra = sorted(map(key_of, set(got) - set(want)))
+    if missing or extra:
+        raise ValueError(f"optimizer state: missing leaves {missing}, "
+                         f"unexpected leaves {extra}")
+    placed = {}
+    for path, w in want.items():
+        arr = np.asarray(got[path])
+        dtype = str(w.dtype).removeprefix("torch.")
+        if arr.shape != tuple(w.shape) or str(arr.dtype) != dtype:
+            raise ValueError(f"{key_of(path)}: {arr.dtype}{list(arr.shape)}, "
+                             f"expected {dtype}{list(w.shape)}")
+        placed[path] = torch.from_numpy(np.array(arr)).to(device)
+    return tree_map_with_path(lambda path, _: placed[path], spec)

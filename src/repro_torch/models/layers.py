@@ -14,6 +14,9 @@ here too.
 Caches are written in place: a layer given ``cache`` writes its new keys,
 values or states into the cache's tensors (views of the stacked cache)
 and returns that cache, where the JAX layer returns an updated copy.
+Without a cache every layer is differentiable as written (the training
+path): the MoE dispatch's ``index_put_`` and ``index_add_`` write into
+fresh buffers, and the SSD chunk recurrence builds new tensors.
 
 Left for a later slice: the expert-parallel MoE dispatches
 (``_moe_ep_shardmap`` / ``_moe_ep_stationary``), which run only under a

@@ -3,6 +3,7 @@
 Counterpart of the serving half of ``src/repro/models/transformer.py``:
 
     params            = init_model(cfg, generator)
+    loss, metrics     = train_loss(cfg, params, batch)
     logits, caches    = forward_logits(cfg, params, batch)
     caches            = init_cache(cfg, batch, max_len)
     logits, caches    = prefill(cfg, params, batch, caches)
@@ -12,15 +13,24 @@ The parameter tree is the JAX package's, key for key, with the stacked
 leading layer axis; where the JAX model scans over that axis, this one
 loops over its views, and the hybrid's ``lax.cond`` is an ``if``.  The
 caches are written in place (see :mod:`.layers`), and prefill and
-decode return the caches they were given.  The training half
-(``train_loss``, the chunked cross-entropy, the MTP head) is not ported
-yet.
+decode return the caches they were given.
+
+Training: ``train_loss`` takes the next-token loss from the final hidden
+states through :func:`chunked_ce_from_hidden` (each sequence chunk's
+logits recomputed in the backward pass, so peak memory is O(B·chunk·V)
+as under the JAX ``@jax.checkpoint`` scan), plus the MTP head where the
+config has one.  Where ``cfg.remat`` has the JAX model wrap its scanned
+layer body in ``jax.checkpoint``, each layer call of the loop here runs
+under a non-reentrant ``torch.utils.checkpoint.checkpoint``, while
+autograd records and no cache is given (a cached call, serving, writes
+its cache in place and is never recomputed).
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from .config import ModelConfig
@@ -39,6 +49,23 @@ def n_stacked(tree: Params) -> int:
     """The leading (layer) axis of a stacked tree."""
     leaf = next(iter(tree.values()))
     return n_stacked(leaf) if isinstance(leaf, dict) else leaf.shape[0]
+
+
+def _recomputed(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its activations recomputed in the backward
+    pass (a non-reentrant checkpoint) while autograd records."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+    return fn(*args, **kwargs)
+
+
+def _remat(cfg: ModelConfig, caches, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, recomputed in the backward pass when
+    ``cfg.remat`` holds and there is no cache (the JAX model's
+    ``jax.checkpoint`` of its scanned body)."""
+    if cfg.remat and caches is None:
+        return _recomputed(fn, *args, **kwargs)
+    return fn(*args, **kwargs)
 
 
 def _positions(b: int, l: int, cache_pos: int | None, device):
@@ -77,6 +104,58 @@ def _unembed(cfg: ModelConfig, params: Params,
     return logits
 
 
+def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Negative log-likelihood of each label, in float32."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, labels.long()[..., None],
+                                dim=-1)[..., 0]
+    return lse - gold
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    nll = _nll(logits, labels)
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def _chunk_nll(cfg: ModelConfig, params: Params, hc: torch.Tensor,
+               lc: torch.Tensor, mc: torch.Tensor) -> torch.Tensor:
+    """One sequence chunk's masked negative log-likelihood sum."""
+    return (_nll(_unembed(cfg, params, hc), lc) * mc).sum()
+
+
+def chunked_ce_from_hidden(cfg: ModelConfig, params: Params,
+                           h: torch.Tensor, labels: torch.Tensor,
+                           mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Cross-entropy without materialising (B, S, V) logits.
+
+    The unembedding product and logsumexp run one sequence chunk of
+    ``cfg.ce_chunk`` at a time, each under a non-reentrant checkpoint
+    (while autograd records), so the backward pass recomputes a chunk's
+    logits instead of keeping them: peak memory O(B·chunk·V).  A
+    sequence no longer than a chunk, or not a multiple of it, takes the
+    whole logits at once, as in the JAX function.
+    """
+    b, s, _ = h.shape
+    chunk = cfg.ce_chunk
+    if not chunk or s % chunk != 0 or s <= chunk:
+        return cross_entropy(_unembed(cfg, params, h), labels, mask)
+    ms = (torch.ones((b, s), dtype=torch.float32, device=h.device)
+          if mask is None else mask.float())
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(0, s, chunk):
+        mc = ms[:, c:c + chunk]
+        tot = tot + _recomputed(_chunk_nll, cfg, params, h[:, c:c + chunk],
+                                labels[:, c:c + chunk], mc)
+        cnt = cnt + mc.sum()
+    return tot / torch.clamp(cnt, min=1.0)
+
+
 # ------------------------------------------------------- decoder layer(s)
 def _init_decoder_layers(cfg: ModelConfig, gen, n: int, ffn: str,
                          d_ff: int, lead=None) -> Params:
@@ -113,9 +192,10 @@ def _decoder_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor, *,
 def _run_stack(cfg: ModelConfig, stacked: Params, x: torch.Tensor, *,
                positions, caches, cache_pos, ffn: str) -> torch.Tensor:
     for i in range(n_stacked(stacked)):
-        x = _decoder_layer(cfg, layer(stacked, i), x, positions=positions,
-                           cache=None if caches is None else layer(caches, i),
-                           cache_pos=cache_pos, ffn=ffn)
+        x = _remat(cfg, caches, _decoder_layer, cfg, layer(stacked, i), x,
+                   positions=positions,
+                   cache=None if caches is None else layer(caches, i),
+                   cache_pos=cache_pos, ffn=ffn)
     return x
 
 
@@ -208,9 +288,9 @@ def _ssm_lm_apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                   return_hidden: bool = False):
     x = _embed(cfg, params, tokens)
     for i in range(cfg.n_layers):
-        x = _ssm_layer(cfg, layer(params["layers"], i), x,
-                       None if caches is None else layer(caches["main"], i),
-                       cache_pos)
+        x = _remat(cfg, caches, _ssm_layer, cfg, layer(params["layers"], i),
+                   x, None if caches is None else layer(caches["main"], i),
+                   cache_pos)
     h = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if return_hidden:
         return h, caches
@@ -258,7 +338,8 @@ def _hybrid_lm_apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     period = cfg.hybrid_period
     n_inv = _n_attn_invocations(cfg)
     has_cache = caches is not None
-    for idx in range(cfg.n_layers):
+
+    def body(x, idx):
         x = _ssm_layer(cfg, layer(params["layers"], idx), x,
                        layer(caches["main"], idx) if has_cache else None,
                        cache_pos)
@@ -268,6 +349,10 @@ def _hybrid_lm_apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             x = _shared_attn_block(
                 cfg, params["shared_attn"], x, positions,
                 layer(caches["attn"], inv) if has_cache else None, cache_pos)
+        return x
+
+    for idx in range(cfg.n_layers):
+        x = _remat(cfg, caches, body, x, idx)
     h = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if return_hidden:
         return h, caches
@@ -306,14 +391,17 @@ def _encode(cfg: ModelConfig, params: Params,
     positions = _positions(b, t, None, frames.device)
     dt = L.dtype_of(cfg)
     x = frames.to(dt) + _sinusoid(positions, cfg.d_model).to(dt)
-    for i in range(cfg.n_enc_layers):
-        lp = layer(params["enc_layers"], i)
+
+    def body(x, lp):
         h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
         a, _ = L.attention(cfg, lp["attn"], h, positions=positions,
                            causal=False)
         x = x + a
         h2 = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + L.mlp(cfg, lp["mlp"], h2, gelu=True)
+        return x + L.mlp(cfg, lp["mlp"], h2, gelu=True)
+
+    for i in range(cfg.n_enc_layers):
+        x = _remat(cfg, None, body, x, layer(params["enc_layers"], i))
     return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -344,10 +432,9 @@ def _encdec_apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     x = x + _sinusoid(positions, cfg.d_model).to(x.dtype)
     has_cache = caches is not None
     for i in range(cfg.n_layers):
-        x = _dec_layer(cfg, layer(params["dec_layers"], i), x, enc_out,
-                       positions,
-                       layer(caches["dec"], i) if has_cache else None,
-                       cache_pos)
+        x = _remat(cfg, caches, _dec_layer, cfg,
+                   layer(params["dec_layers"], i), x, enc_out, positions,
+                   layer(caches["dec"], i) if has_cache else None, cache_pos)
     h = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     out_c = {"dec": caches["dec"], "enc_out": enc_out} if has_cache else None
     if return_hidden:
@@ -395,6 +482,45 @@ def forward_logits(cfg: ModelConfig, params: Params, batch: dict,
                              caches=caches, cache_pos=cache_pos,
                              return_hidden=return_hidden)
     raise ValueError(cfg.family)
+
+
+def train_loss(cfg: ModelConfig, params: Params, batch: dict):
+    """Next-token loss (+ the MTP auxiliary where configured), from the
+    final hidden states through the chunked cross-entropy, so the
+    (B, S, vocab) logits are never materialised whole.  Returns
+    ``(loss, metrics)`` as 0-d float32 tensors."""
+    h, _ = forward_logits(cfg, params, batch, return_hidden=True)
+    h_tok = h[:, batch["patches"].shape[1]:, :] if cfg.family == "vlm" \
+        else h
+    labels = batch["labels"]
+    loss = chunked_ce_from_hidden(cfg, params, h_tok, labels,
+                                  batch.get("loss_mask"))
+    metrics = {"loss": loss}
+    if cfg.mtp:
+        mp = params["mtp"]
+        emb_next = _embed(cfg, params, labels)
+        cat = torch.cat([L.rms_norm(h, mp["norm"], cfg.norm_eps), emb_next],
+                        dim=-1)
+        x2 = L.matmul(cat, mp["proj"])
+        b, l, _ = x2.shape
+        x2 = _decoder_layer(cfg, mp["layer"], x2,
+                            positions=_positions(b, l, None, x2.device),
+                            cache=None, cache_pos=None, ffn="mlp")
+        h2 = L.rms_norm(x2, mp["final_norm"], cfg.norm_eps)
+        # position t predicts token t+2: pair h2[:, t] with labels[:, t+1];
+        # pad and mask the last slot so the chunked CE keeps full length
+        bsz, s = labels.shape
+        labels_mtp = torch.cat([labels[:, 1:], labels[:, -1:]], dim=1)
+        mask_mtp = torch.cat(
+            [torch.ones((bsz, s - 1), dtype=torch.float32, device=h.device),
+             torch.zeros((bsz, 1), dtype=torch.float32, device=h.device)],
+            dim=1)
+        mtp_loss = chunked_ce_from_hidden(cfg, params, h2, labels_mtp,
+                                          mask_mtp)
+        metrics["mtp_loss"] = mtp_loss
+        loss = loss + 0.3 * mtp_loss
+        metrics["loss"] = loss
+    return loss, metrics
 
 
 # ------------------------------------------------------------ KV caches

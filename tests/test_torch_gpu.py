@@ -25,8 +25,11 @@ position, each on a stream of its own.  The model zoo: every
 architecture, reduced, on the card against the CPU (float32, TF32 off:
 within ``MODEL_TOL``), prefill then decode against the full forward,
 ``ServeEngine`` tokens at a float32 cache equal to the CPU engine's, and
-the serving CLI's ``main`` on the card (K2 launched).  The file imports
-nothing of JAX, so it runs where only the port is installed.
+the serving CLI's ``main`` on the card (K2 launched).  Training:
+``train_loss``, its gradients and 3 AdamW steps on the card against the
+CPU, and a ``CheckpointStore`` round trip of a tree of card tensors with
+an in-place step between the asynchronous save and its write.  The file
+imports nothing of JAX, so it runs where only the port is installed.
 """
 import threading
 import time
@@ -1125,3 +1128,90 @@ def test_serve_main_on_card(cuda, monkeypatch, capsys):
                 re.search(r"generated (\d+) tokens", out).group(1))
 
     assert summary(outs[1]) == summary(outs[0])
+
+
+# --------------------------------------------------------------- training
+def test_train_loss_grads_and_steps_on_card_equal_cpu(cuda, no_tf32):
+    """qwen3-0.6b reduced: the loss within 1e-5 relative, every gradient
+    leaf within ``rtol=1e-4, atol=1e-6``; 3 train steps' losses within
+    1e-5 relative; after 3 AdamW updates from the same (the CPU's)
+    gradients, parameters and states within 1e-5.  (After full steps the
+    parameters are not compared: AdamW's first update is g / (|g| +
+    eps), so rounding noise in a gradient near zero moves a parameter
+    by up to lr.)"""
+    from repro_torch.models import transformer as T
+    from repro_torch.train import make_optimizer, make_train_step
+    from repro_torch.train.train_step import grads_and_metrics
+    from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+    cfg, params, batch = _model("qwen3-0.6b")
+    tok = batch["tokens"].numpy()
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+
+    def loss_and_grads(p, dev):
+        leaves = [x.detach().requires_grad_() for x in tree_leaves(p)]
+        loss, _ = T.train_loss(cfg, tree_unflatten(p, leaves), {
+            k: torch.from_numpy(np.array(v)).to(dev)
+            for k, v in batch.items()})
+        return loss.item(), torch.autograd.grad(loss, leaves)
+
+    def copy_to(tree, dev):
+        return tree_map(lambda x: x.to(dev, copy=True), tree)
+
+    want, wgrads = loss_and_grads(params, "cpu")
+    got, grads = loss_and_grads(_to(params, cuda), cuda)
+    assert abs(got / want - 1) <= 1e-5
+    for g, w in zip(grads, wgrads):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-6)
+    losses = []
+    for dev in (cuda, "cpu"):
+        p = copy_to(params, dev)
+        opt = make_optimizer("adamw")
+        state = opt.init(p)
+        step = make_train_step(cfg, opt)
+        run = []
+        for i in range(3):
+            p, state, m = step(p, state, batch, np.int32(i))
+            run.append(m["loss"].item())
+        losses.append(run)
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-5)
+    opt = make_optimizer("adamw")
+    p_c, p_h = copy_to(params, cuda), copy_to(params, "cpu")
+    s_c, s_h = opt.init(p_c), opt.init(p_h)
+    for i in range(3):
+        g, _ = grads_and_metrics(cfg, p_h, batch)
+        p_c, s_c = opt.update(copy_to(g, cuda), s_c, p_c, np.int32(i))
+        p_h, s_h = opt.update(g, s_h, p_h, np.int32(i))
+    for a, b in zip(tree_leaves((p_c, s_c)), tree_leaves((p_h, s_h))):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-5)
+
+
+def test_checkpoint_roundtrip_of_card_tensors(cuda, tmp_path):
+    """``save_async`` of card tensors copies them to the host before it
+    returns: an in-place optimizer step right after does not reach the
+    checkpoint; ``restore`` puts the leaves back on the card."""
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.train import make_optimizer, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    cfg, params, batch = _model("qwen3-0.6b")
+    tok = batch["tokens"].numpy()
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    params = _to(params, cuda)
+    opt = make_optimizer("adamw")
+    state = opt.init(params)
+    step = make_train_step(cfg, opt)
+    params, state, _ = step(params, state, batch, np.int32(0))
+    before = [x.cpu() for x in tree_leaves((params, state))]
+    store = CheckpointStore(str(tmp_path))
+    store.save_async(1, (params, state))
+    params, state, _ = step(params, state, batch, np.int32(1))
+    store.wait()
+    (p2, s2), _ = store.restore(1, (params, state))
+    leaves = tree_leaves((p2, s2))
+    assert all(x.device.type == "cuda" for x in leaves)
+    for got, want in zip(leaves, before):
+        assert torch.equal(got.cpu(), want)
+    assert not torch.equal(tree_leaves(params)[0].cpu(), before[0])
+    host, _ = store.restore(1, (params, state), device="cpu")
+    assert tree_leaves(host)[0].device.type == "cpu"
