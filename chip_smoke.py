@@ -168,7 +168,24 @@ printed as it runs; any failure exits non-zero:
    bytes`` (K5, K6) and ``events`` (K6), 6 steps, a checkpoint every 3:
    the ingest it built equal to the CPU port's as in (b), the loss
    falling;
-13. the end-to-end line, one ``{"kernels": [...]}`` line, the card line,
+13. the LM substrate on a mesh (no kernel of its own; its launch counts
+   are read and must stay 0): (a) qwen3-0.6b at its published width in
+   bfloat16 saved and restored bit for bit (``|V2`` in the npz,
+   ``"bfloat16"`` in the manifest), each timed on the host clock; (b) the
+   rule specs of the float32 model on ``make_host_mesh()`` and on a 2 x 2
+   grid of the card (leaves split, bytes a position), then the elastic
+   flow on the grid: save from one device, restore onto 2 x 2 (gathered
+   bit for bit, some leaf split), save from the placed layout, restore
+   replicated (bit for bit), each timed; (c) one MoE layer of
+   qwen3-moe-30b-a3b at its published width on the grid, forward and
+   backward at n = 32 (the weights-stationary branch) and n = 4,096 (the
+   shard-map branch): each branch's dropped assignments; held against the
+   card's single-device ``moe`` where neither drops one, else against the
+   same dispatch with its positions one after another on the default
+   stream; ms a branch (CUDA events) and peak memory; reduced qwen3-moe
+   and deepseek-v3 on the grid against the CPU port's expert-parallel
+   path, both branches;
+14. the end-to-end line, one ``{"kernels": [...]}`` line, the card line,
    and the result line.
 """
 from __future__ import annotations
@@ -275,6 +292,18 @@ TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, TRAIN_GRAD_ATOL = 1e-5, 1e-4, 1e-6
 TRAIN_PARAM_TOL = 1e-5
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_CKPT_EVERY = 2, 4096, 4, 2
 TRAIN_CLI_STEPS, TRAIN_CLI_CKPT_EVERY = 6, 3
+
+# phase 13, the LM substrate on a mesh: an explicit 2 x 2 grid of the one
+# card; one MoE layer of qwen3-moe-30b-a3b at its published width (every
+# width as published, the depth cut to one layer) at a decode-sized and a
+# prefill-sized token count, the reduced zoo's MoE models at the CPU
+# tests' token counts; the bounds of tests/test_moe_ep.py
+MESH_LM_DATA, MESH_LM_MODEL = 2, 2
+MOE_ARCH, MOE_TOKENS = "qwen3-moe-30b-a3b", ((32, "stationary"),
+                                             (4096, "shardmap"))
+MOE_ZOO, MOE_ZOO_SHAPES = ("qwen3-moe-30b-a3b", "deepseek-v3-671b"), (
+    (4, 8), (4, 552))
+MOE_FWD_TOL, MOE_GRAD_RTOL, MOE_TIMED_REPS = 1e-4, 1e-5, 3
 
 # card peaks (H100 SXM data sheet): HBM bytes/s, the 32-bit non-tensor
 # rate, which bounds the kernels' integer bit operations and K6's float32
@@ -3195,6 +3224,299 @@ def train_phase(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 13
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit: the raw 16- or 32-bit words of the values."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    words = {2: torch.int16, 4: torch.int32}.get(a.element_size())
+    return torch.equal(a.view(words), b.view(words)) if words is not None \
+        and a.is_floating_point() else torch.equal(a, b)
+
+
+def moe_run(p: dict, x: torch.Tensor, fn, card: bool = True) -> tuple:
+    """(y, gradients of router, wi and wo, ms, peak bytes) of
+    ``sum(fn(q, x) ** 2)`` forward and backward, ``q`` being ``p``'s
+    leaves as new leaves that take gradients; on the card, ms from CUDA
+    events on the caller's stream (which joins the positions' streams)
+    and the peak of device memory, else ``None``."""
+    q = {k: (v.detach().requires_grad_(True) if isinstance(v, torch.Tensor)
+             else {kk: vv.detach().requires_grad_(True)
+                   for kk, vv in v.items()}) for k, v in p.items()}
+    if card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+    y = fn(q, x)
+    (y ** 2).sum().backward()
+    if not card:
+        return y.detach(), {k: q[k].grad for k in ("router", "wi", "wo")}, \
+            None, None
+    ev[1].record()
+    ev[1].synchronize()
+    return (y.detach(), {k: q[k].grad for k in ("router", "wi", "wo")},
+            ev[0].elapsed_time(ev[1]), torch.cuda.max_memory_allocated())
+
+
+def moe_err(got: tuple, want: tuple) -> tuple[float, float]:
+    """(max |forward difference|, max over router / wi / wo of the
+    largest gradient difference relative to the largest gradient)."""
+    fwd = float((got[0].float().cpu() - want[0].float().cpu()).abs().max())
+    rel = max(float((got[1][k].cpu() - want[1][k].cpu()).abs().max())
+              / (float(want[1][k].abs().max()) + 1e-9) for k in got[1])
+    return fwd, rel
+
+
+class BranchLog:
+    """For the length of a ``with``, list the expert-parallel branches
+    ``moe`` takes (``"stationary"``, ``"shardmap"``)."""
+
+    NAMES = ("_moe_ep_stationary", "_moe_ep_shardmap")
+
+    def __enter__(self) -> list:
+        from repro_torch.models import layers
+
+        self.layers = layers
+        self.orig = {n: getattr(layers, n) for n in self.NAMES}
+        taken: list = []
+
+        def logged(name, fn):
+            def wrapper(*args, **kwargs):
+                taken.append(name[len("_moe_ep_"):])
+                return fn(*args, **kwargs)
+            return wrapper
+        for n, fn in self.orig.items():
+            setattr(layers, n, logged(n, fn))
+        return taken
+
+    def __exit__(self, *exc) -> None:
+        for n, fn in self.orig.items():
+            setattr(self.layers, n, fn)
+
+
+def mesh_lm_phase(dev) -> dict:
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import mesh_context
+    from repro_torch.sharding import rules as R
+    from repro_torch.sharding.placement import PlacedTensor, gather
+    from repro_torch.tree import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    grid = make_host_mesh(MESH_LM_MODEL,
+                          devices=[dev] * (MESH_LM_DATA * MESH_LM_MODEL))
+    say(f"phase 13: the LM substrate on a mesh, a {MESH_LM_DATA} x "
+        f"{MESH_LM_MODEL} grid of positions on the card")
+    out: dict = {}
+    work = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+
+    def nbytes(tree):
+        return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+
+    def timed(fn):
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t
+
+    try:
+        # (a) a bfloat16 checkpoint at full width
+        cfg16 = get_config(LM_ARCH, param_dtype="bfloat16")
+        p16 = T.init_model(cfg16, torch.Generator(device=dev).manual_seed(0))
+        store = CheckpointStore(os.path.join(work, "bf16"))
+        _, save_s = timed(lambda: store.save(1, p16, {"config": cfg16.name}))
+        (back, manifest), restore_s = timed(lambda: store.restore(1, p16))
+        check(all(same_bits(a, b) for a, b in zip(tree_leaves(back),
+                                                   tree_leaves(p16))),
+              "(a) the bfloat16 checkpoint did not restore bit for bit")
+        check(set(manifest["dtypes"].values()) == {"bfloat16"},
+              f"(a) manifest dtypes {set(manifest['dtypes'].values())}")
+        with np.load(os.path.join(work, "bf16", "step_00000001",
+                                  "arrays.npz")) as z:
+            npz_dtype = z["embed"].dtype.str
+        check(npz_dtype == "|V2", f"(a) the npz holds {npz_dtype}")
+        out["bf16"] = {"bytes": nbytes(p16), "save_s": save_s,
+                       "restore_s": restore_s}
+        say(f"(a) {LM_ARCH} in bfloat16, {nbytes(p16) / 1e9:.2f} GB: save "
+            f"{save_s:.2f} s, restore {restore_s:.2f} s (host clock), "
+            f"bit for bit; npz {npz_dtype}, manifest 'bfloat16'")
+        del p16, back
+        shutil.rmtree(os.path.join(work, "bf16"))
+
+        # (b) rule specs, then the elastic flow on the grid
+        cfg = get_config(LM_ARCH)
+        shapes = T.init_model(cfg, None)
+        total = nbytes(shapes)
+        for name, mesh in (("make_host_mesh()", make_host_mesh()),
+                           (f"the {MESH_LM_DATA} x {MESH_LM_MODEL} grid",
+                            grid)):
+            sh = tree_leaves(R.param_shardings(cfg, shapes, mesh))
+            split = sum(not s.is_fully_replicated for s in sh)
+            per_pos = sum(int(np.prod(s.shard_shape(x.shape)))
+                          * x.element_size()
+                          for s, x in zip(sh, tree_leaves(shapes)))
+            out.setdefault("specs", {})[name] = {
+                "shape": mesh.shape, "split": split, "leaves": len(sh),
+                "bytes_a_position": per_pos}
+            say(f"(b) rule specs on {name} {mesh.shape}: {split} of "
+                f"{len(sh)} leaves split, {per_pos / 1e9:.3f} GB a position "
+                f"of {total / 1e9:.3f} GB")
+        shardings = R.param_shardings(cfg, shapes, grid)
+        params = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0))
+        store = CheckpointStore(os.path.join(work, "elastic"))
+        steps = {}
+        _, steps["save, one device"] = timed(
+            lambda: store.save(3, params, {"mesh": "none"}))
+        (step, placed, _), steps["restore onto 2 x 2"] = timed(
+            lambda: store.restore_latest(params, shardings))
+        leaves = tree_leaves(placed)
+        check(step == 3 and all(isinstance(x, PlacedTensor)
+                                for x in leaves),
+              "(b) the restore onto the grid did not place every leaf")
+        n_split = sum(not x.sharding.is_fully_replicated for x in leaves)
+        check(n_split > 0, "(b) no leaf split on the grid")
+        check(all(same_bits(gather(a), b)
+                  for a, b in zip(leaves, tree_leaves(params))),
+              "(b) the gathered leaves differ from the saved ones")
+        _, steps["save, placed 2 x 2"] = timed(
+            lambda: store.save(4, placed, {"mesh": "2x2"}))
+        (step, back, _), steps["restore replicated"] = timed(
+            lambda: store.restore_latest(params))
+        check(step == 4 and all(same_bits(a, b) for a, b in zip(
+            tree_leaves(back), tree_leaves(params))),
+              "(b) the replicated restore differs from the saved tree")
+        out["elastic"] = {"bytes": total, "split": n_split, "s": steps}
+        say(f"(b) elastic flow on the grid, {total / 1e9:.2f} GB float32, "
+            f"{n_split} leaves split, bit for bit: " + ", ".join(
+                f"{k} {v:.2f} s" for k, v in steps.items())
+            + " (host clock)")
+        del params, placed, back, leaves
+        shutil.rmtree(os.path.join(work, "elastic"))
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # (c) one MoE layer at its published width on the grid
+    cfg = get_config(MOE_ARCH)
+    p = L.init_moe(cfg, torch.Generator(device=dev).manual_seed(0))
+    say(f"(c) one MoE layer of {MOE_ARCH} at its published width: d_model "
+        f"{cfg.d_model}, {cfg.n_experts} experts, top-{cfg.moe_top_k}, "
+        f"d_expert {cfg.d_expert}, {nbytes(p) / 1e9:.2f} GB float32")
+    out["moe"] = {}
+    for n, want in MOE_TOKENS:
+        x = torch.randn((1, n, cfg.d_model), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(n))
+        x2 = x.reshape(n, cfg.d_model)
+        shards = 1 if want == "stationary" else MESH_LM_DATA
+        drops = L.dropped_assignments(cfg, p["router"], x2, shards,
+                                      L._ep_capacity(cfg, n // shards))
+        drops_one = L.dropped_assignments(cfg, p["router"], x2, 1,
+                                          L._moe_capacity(cfg, n))
+
+        def ep(q, xx):
+            with mesh_context(grid):
+                return L.moe(cfg, q, xx)
+        with BranchLog() as taken:
+            got = moe_run(p, x, ep)
+        check(taken == [want], f"(c) n = {n}: moe took {taken}, not "
+                               f"[{want!r}]")
+        if drops == 0 and drops_one == 0:
+            what = "the card's single-device moe"
+
+            def plain(q, xx):
+                return L.moe(cfg, q, xx)
+        else:
+            what = "the same dispatch, positions one after another"
+            branch = getattr(L, f"_moe_ep_{want}")
+
+            def plain(q, xx):
+                return branch(cfg, q, xx.reshape(n, -1), grid,
+                              streams=False).reshape(xx.shape)
+        ref = moe_run(p, x, plain)
+        fwd, rel = moe_err(got, ref)
+        check(fwd < MOE_FWD_TOL and rel < MOE_GRAD_RTOL,
+              f"(c) n = {n} ({want}): forward {fwd:.3g}, gradients "
+              f"{rel:.3g} relative against {what}")
+        # timed in turns after the checked runs: branch, reference, ...
+        reps, ref_reps = [], []
+        for _ in range(MOE_TIMED_REPS):
+            reps.append(moe_run(p, x, ep)[2])
+            ref_reps.append(moe_run(p, x, plain)[2])
+        reps, ref_reps = sorted(reps), sorted(ref_reps)
+        busy = device_busy_us(lambda: moe_run(p, x, ep))
+        out["moe"][want] = {
+            "n": n, "dropped": drops, "dropped_single": drops_one,
+            "ms": reps[len(reps) // 2], "ms_runs": reps, "ref": what,
+            "ref_ms": ref_reps[len(ref_reps) // 2], "ref_ms_runs": ref_reps,
+            "peak_bytes": got[3], "ref_peak": ref[3],
+            "fwd_err": fwd, "grad_rel": rel,
+            "y_max": float(ref[0].abs().max()),
+            "busy_ms": busy[0] / 1e3 if busy else None,
+            "kernels": busy[1] if busy else None,
+            "top_kernels": busy[2] if busy else None}
+        busy_text = (f"; one more run traced: {busy[1]} kernels, the card "
+                     f"busy {busy[0] / 1e3:.2f} ms (torch.profiler), most "
+                     f"in " + "; ".join(f"{k} {us / 1e3:.2f} ms x{c}"
+                                       for k, us, c in busy[2][:3])
+                     if busy else "; busy share not measured (the trace "
+                     "held no device time)")
+        say(f"(c) n = {n}: the {want} branch; dropped assignments {drops} "
+            f"(the single-device path's {drops_one}); against {what}: "
+            f"forward {fwd:.2e} (tolerance {MOE_FWD_TOL}), gradients "
+            f"{rel:.2e} relative ({MOE_GRAD_RTOL}), the reference's "
+            f"largest |y| {out['moe'][want]['y_max']:.3g}; forward + "
+            f"backward " + ", ".join(f"{r:.2f}" for r in reps)
+            + " ms (CUDA events, in turns with the reference's "
+            + ", ".join(f"{r:.2f}" for r in ref_reps) + " ms), peak "
+            f"{got[3] / 2**30:.2f} GiB (the reference {ref[3] / 2**30:.2f})"
+            + busy_text)
+        del got, ref, x, x2
+    del p
+    torch.cuda.empty_cache()
+    cpu_grid = make_host_mesh(MESH_LM_MODEL, devices=["cpu"] * (
+        MESH_LM_DATA * MESH_LM_MODEL))
+    worst = (0.0, 0.0)
+    for arch in MOE_ZOO:
+        cfg = get_config(arch, reduced=True)
+        p = L.init_moe(cfg, torch.Generator().manual_seed(0))
+        for shape in MOE_ZOO_SHAPES:
+            x = torch.randn(shape + (cfg.d_model,),
+                            generator=torch.Generator().manual_seed(1))
+
+            def ep_on(mesh):
+                def f(q, xx):
+                    with mesh_context(mesh):
+                        return L.moe(cfg, q, xx)
+                return f
+            on_card = {k: v.to(dev) if isinstance(v, torch.Tensor)
+                       else {kk: vv.to(dev) for kk, vv in v.items()}
+                       for k, v in p.items()}
+            card = moe_run(on_card, x.to(dev), ep_on(grid))
+            host = moe_run(p, x, ep_on(cpu_grid), card=False)
+            fwd, rel = moe_err(card, host)
+            check(fwd < MOE_FWD_TOL and rel < MOE_GRAD_RTOL,
+                  f"(c) reduced {arch} {shape}: forward {fwd:.3g}, "
+                  f"gradients {rel:.3g} relative against the CPU")
+            worst = (max(worst[0], fwd), max(worst[1], rel))
+    out["zoo_err"] = worst
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"(c) reduced {', '.join(MOE_ZOO)} on the grid, token counts "
+        f"{[a * b for a, b in MOE_ZOO_SHAPES]}, against the CPU port's "
+        f"expert-parallel path: forward within {worst[0]:.2e}, gradients "
+        f"within {worst[1]:.2e} relative; phase 13 in {out['phase_s']:.1f} s")
+    return out
+
+
 # ------------------------------------------------------------------- main
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3236,10 +3558,18 @@ def main() -> int:
                       sharded, dev)
     lm = lm_phase(dev)
     train = train_phase(dev)
+    # the LM substrate on a mesh runs no kernel of the filter: its counts
+    # are read around it and must stay 0
+    reset_counts()
+    mesh_lm = mesh_lm_phase(dev)
+    torch.cuda.synchronize()
+    mesh_lm["launches"] = counts()
+    check(not any(mesh_lm["launches"].values()),
+          f"phase 13 launched {mesh_lm['launches']}")
 
     s = run["stats"]
     card = card_line()
-    say(f"phase 13: end to end on {card}: {len(run['payloads'])} documents, "
+    say(f"phase 14: end to end on {card}: {len(run['payloads'])} documents, "
         f"{run['n_bytes']} bytes in {run['e2e_s']:.3f} s = "
         f"{len(run['payloads']) / run['e2e_s']:.1f} docs/s, "
         f"{run['n_bytes'] / run['e2e_s'] / 1e6:.1f} MB/s (host clock around "
@@ -3280,6 +3610,11 @@ def main() -> int:
         f"{train['tokens_per_s']:.1f} tokens/s, "
         f"{train['tflop_per_s']:.2f} TFLOP/s, peak "
         f"{train['peak_bytes'] / 2**30:.2f} GiB"
+        + f"; LM on a {MESH_LM_DATA} x {MESH_LM_MODEL} grid: elastic "
+        f"restore onto it {mesh_lm['elastic']['s']['restore onto 2 x 2']:.2f}"
+        f" s, MoE layer ({MOE_ARCH}) stationary "
+        f"{mesh_lm['moe']['stationary']['ms']:.2f} ms, shard-map "
+        f"{mesh_lm['moe']['shardmap']['ms']:.2f} ms forward + backward"
         + f"; serve loop: sparse pub-sub p50 "
         f"{serving['sparse']['p50_ms']:.3f} / p99 "
         f"{serving['sparse']['p99_ms']:.3f} ms at "
@@ -3328,6 +3663,8 @@ def main() -> int:
         # two CLI runs (bytes: K5 and K6; events: K6)
         row["train_launches"] = train["pipeline_launches"][key] + sum(
             v[key] for v in train["cli_launches"].values())
+        # phase 13: the LM substrate on a mesh (no filter kernel)
+        row["lm_mesh_launches"] = mesh_lm["launches"][key]
         row["mesh_positions"] = mesh["positions"]
         if key == "K2":
             row["mesh_position_ms"] = mesh["position_ms"]

@@ -1,6 +1,6 @@
 # Copy of src/repro/checkpoint/store.py:46-121 and :225-277 (the port imports
 # nothing of the JAX package), with PlanCache.load added; CheckpointStore
-# (:123-222) ported over the port's own pytrees.
+# (:123-223) ported over the port's own pytrees and placed trees.
 """Checkpoints and the crash-safe plan cache of the port.
 
 Layout per entry::
@@ -23,9 +23,18 @@ numpy's, the manifest's fields the same, so a step written by either
 package restores in the other.  ``restore_latest`` walks back to the
 newest intact step.  ``save_async`` copies every leaf to host memory
 before it returns (the port's optimizer updates parameters in place),
-then writes on a thread.  ``restore(..., device=)`` places the leaves on
-one device, where the JAX store takes shardings; a sharded restore
-waits for the port's multi-device LM parts.
+then writes on a thread.  ``restore(step, like, shardings)`` places each
+leaf on a mesh's positions as the JAX store does (elastic restore: a step
+saved under one layout restores under another), and ``save`` gathers a
+placed leaf first, so the files never depend on the layout;
+``restore(..., device=)`` puts the leaves on one device.
+
+A bfloat16 leaf is stored as the JAX store stores it: numpy has no
+bfloat16, so the npz holds its 2 raw bytes an element (dtype ``|V2``)
+and the manifest says ``"bfloat16"``.  ``restore`` reads ``|V2`` (or
+uint16) back as bfloat16 wherever ``like``'s leaf is bfloat16.  The JAX
+store's own ``restore`` hands back the ``|V2`` arrays; the port does not
+copy that.
 
 :class:`PlanCache` keeps compiled filter-plan tables under a content hash
 (:meth:`repro_torch.core.engines.base.FilterEngine.plan_cache_key`), so a
@@ -46,6 +55,7 @@ from typing import Any, Callable, TypeVar
 import numpy as np
 import torch
 
+from ..sharding.placement import PlacedTensor, device_put, gather
 from ..tree import key_of, tree_flatten_with_path, tree_map_with_path
 
 T = TypeVar("T")
@@ -128,13 +138,38 @@ def _valid_entry(path: str) -> bool:
         return False
 
 
+#: numpy's stand-in for bfloat16 in an npz: 2 raw bytes an element
+_BF16_NPZ = np.dtype("V2")
+
+
+def _host(leaf: Any) -> np.ndarray:
+    """A leaf as a host numpy copy (a copy even of a CPU tensor, so later
+    in-place updates leave it alone); bfloat16 as its raw bytes."""
+    if isinstance(leaf, PlacedTensor):
+        leaf = gather(leaf, "cpu")
+    if not isinstance(leaf, torch.Tensor):
+        return np.array(leaf)
+    t = leaf.detach().to("cpu", copy=True)
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.uint16).numpy().view(_BF16_NPZ)
+    return t.numpy()
+
+
+def _dtype_name(arr: np.ndarray) -> str:
+    """The manifest's dtype, as JAX's ``str(v.dtype)`` spells it."""
+    return "bfloat16" if arr.dtype == _BF16_NPZ else str(arr.dtype)
+
+
 def _flatten(tree: Any) -> dict[str, np.ndarray]:
-    """Every leaf as a host numpy copy under its JAX key path (a copy even
-    of a CPU tensor, so later in-place updates leave it alone)."""
-    return {key_of(path): (leaf.detach().to("cpu", copy=True).numpy()
-                           if isinstance(leaf, torch.Tensor)
-                           else np.array(leaf))
+    """Every leaf as a host numpy copy under its JAX key path."""
+    return {key_of(path): _host(leaf)
             for path, leaf in tree_flatten_with_path(tree)}
+
+
+def _tensor(arr: np.ndarray, dtype: torch.dtype | None) -> torch.Tensor:
+    if dtype == torch.bfloat16 and arr.dtype in (_BF16_NPZ, np.uint16):
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def _tree_like(tree: Any, flat: dict[str, np.ndarray], device) -> Any:
@@ -146,7 +181,7 @@ def _tree_like(tree: Any, flat: dict[str, np.ndarray], device) -> Any:
                              f"{tuple(like.shape)}")
         dev = device if device is not None else getattr(like, "device",
                                                         "cpu")
-        return torch.from_numpy(arr).to(dev)
+        return _tensor(arr, getattr(like, "dtype", None)).to(dev)
     return tree_map_with_path(leaf, tree)
 
 
@@ -181,7 +216,7 @@ class CheckpointStore:
             "step": step,
             "keys": sorted(flat.keys()),
             "shapes": {k: list(v.shape) for k, v in flat.items()},
-            "dtypes": {k: str(v.dtype) for k, v in flat.items()},
+            "dtypes": {k: _dtype_name(v) for k, v in flat.items()},
             **extra,
         }
         final = _write_entry(self.dir, name, flat, manifest)
@@ -204,23 +239,33 @@ class CheckpointStore:
                 return int(name.split("_")[1])
         return None
 
-    def restore(self, step: int, like: Any,
+    def restore(self, step: int, like: Any, shardings: Any | None = None,
                 device: Any | None = None) -> tuple[Any, dict]:
         """The step's tree in ``like``'s structure, each leaf checked
-        against ``like``'s shape and placed on ``device`` (``None``: the
-        device of ``like``'s leaf), and its manifest."""
+        against ``like``'s shape, and its manifest.
+
+        With ``shardings`` (a :class:`~repro_torch.sharding.placement.
+        NamedSharding` tree of ``like``'s structure, or one for every
+        leaf) each leaf is placed on its mesh's positions
+        (:func:`~repro_torch.sharding.placement.device_put`), whatever
+        layout the step was saved from.  Otherwise it goes to ``device``
+        (``None``: the device of ``like``'s leaf)."""
         d = os.path.join(self.dir, f"step_{step:08d}")
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
         with np.load(os.path.join(d, "arrays.npz")) as z:
             flat = {k: z[k] for k in z.files}
-        return _tree_like(like, flat, device), manifest
+        if shardings is None:
+            return _tree_like(like, flat, device), manifest
+        host = _tree_like(like, flat, "cpu" if device is None else device)
+        return device_put(host, shardings), manifest
 
-    def restore_latest(self, like: Any, device: Any | None = None):
+    def restore_latest(self, like: Any, shardings: Any | None = None,
+                       device: Any | None = None):
         step = self.latest_step()
         if step is None:
             return None
-        tree, manifest = self.restore(step, like, device)
+        tree, manifest = self.restore(step, like, shardings, device)
         return step, tree, manifest
 
 

@@ -1,6 +1,7 @@
-"""The filter's 2-D ``("data", "model")`` mesh on the port.
+"""The port's meshes: the filter's 2-D ``("data", "model")`` mesh and the
+LM substrate's host and production meshes.
 
-Counterpart of ``src/repro/launch/mesh.py`` lines 36-71.  The paper's
+Counterpart of ``src/repro/launch/mesh.py``.  The paper's
 scaling argument (§3.5) replicates in two dimensions: profiles are
 spread over chips and documents over replicas.  The JAX package runs
 that as one ``shard_map`` program over a ``jax.sharding.Mesh``, from one
@@ -17,8 +18,11 @@ wider than 1 × 1 runs on one card, and on the CPU, where positions run
 one after another.  Positions on different cards get their slices of the
 tables by ``.to(device)``, one memoised copy per table.
 
-``make_host_mesh`` and ``make_production_mesh`` belong to the LM
-substrate and come with it.
+The LM substrate's meshes are positions of the same kind:
+:func:`make_host_mesh` spans the visible cards (or the devices given),
+and :func:`make_production_mesh` is the reference's 16 × 16 (or 2 × 16 ×
+16) grid, as positions on the ``meta`` device: a shape to compute specs
+and per-position bytes against, never to run on.
 """
 from __future__ import annotations
 
@@ -200,3 +204,43 @@ def make_filter_mesh(n_parts: int | None = None, *, data_shards: int = 1,
     data, model = mesh_shape(len(pool), n_parts, data_shards=data_shards)
     return FilterMesh([[pool[d * model + m] for m in range(model)]
                        for d in range(data)])
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> FilterMesh:
+    """16×16 = 256 chips/pod; multi-pod adds a leading 2-pod axis.
+
+    Axes: "data" carries DP+FSDP, "model" carries TP/EP, "pod" composes
+    with "data" for hierarchical data parallelism.  Every position is on
+    the ``meta`` device: the grid has the reference's shape and axis
+    names, for rule specs and sizes, and runs nothing."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+
+    def grid(dims):
+        return "meta" if not dims else [grid(dims[1:])
+                                        for _ in range(dims[0])]
+    return FilterMesh(grid(shape), axis_names=axes)
+
+
+def make_host_mesh(model: int = 1, *, devices=None) -> FilterMesh:
+    """``(data, model)`` mesh over this host's cards, ``model`` of them
+    on the ``"model"`` axis and the rest on ``"data"``.
+
+    ``devices`` (a flat list, a device may repeat) replaces the visible
+    cards, as the tests' grids of the CPU device do.  With neither a card
+    nor ``devices`` it raises: there is no fallback to the CPU."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("make_host_mesh: no CUDA card is visible; "
+                               "pass devices= to build a mesh of other "
+                               "devices")
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    n = len(devices)
+    if model < 1 or n % model != 0:
+        # a real error, not an assert: asserts vanish under ``python -O``
+        raise ValueError(
+            f"cannot build host mesh: {n} devices not divisible by "
+            f"model={model}")
+    return FilterMesh([[devices[d * model + m] for m in range(model)]
+                       for d in range(n // model)])

@@ -18,13 +18,16 @@ Without a cache every layer is differentiable as written (the training
 path): the MoE dispatch's ``index_put_`` and ``index_add_`` write into
 fresh buffers, and the SSD chunk recurrence builds new tensors.
 
-Left for a later slice: the expert-parallel MoE dispatches
-(``_moe_ep_shardmap`` / ``_moe_ep_stationary``), which run only under a
-JAX mesh; :func:`moe` is the single-device path.  ``constrain`` (a
-sharding hint) has no single-device meaning and is not ported.
+Under :func:`repro_torch.sharding.ctx.mesh_context` the MoE layer runs
+expert-parallel over the mesh's positions (``_moe_ep_shardmap`` /
+``_moe_ep_stationary``, picked as the JAX layer picks them); outside it,
+:func:`moe` is the single-device path.  ``constrain`` (a sharding hint
+to XLA) has no counterpart here: :func:`repro_torch.sharding.ctx.
+constrain` is the identity.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Any
 
@@ -32,6 +35,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..sharding.ctx import _mesh
 from .config import ModelConfig
 
 Params = dict[str, Any]
@@ -434,6 +438,292 @@ def _router_weights(cfg: ModelConfig, logits: torch.Tensor):
     return w, idx
 
 
+# --------------------------------------------- expert-parallel dispatches
+# The JAX layer runs these under ``shard_map`` over a mesh.  Here every
+# position of the active mesh (a ``FilterMesh``) runs its part from this
+# thread, on its own CUDA stream (``FilterMesh.use``; off the card one
+# after another), and each ``psum`` is a sum of the positions' partials
+# copied to the first position of their group, then copied back to each
+# position (:func:`_psum`).  The products stay ``torch.einsum``: the JAX
+# package computes them outside any Pallas kernel.  Autograd runs each
+# op's backward on the stream its forward ran on and orders the streams
+# where gradients cross them.
+def _ep_capacity(cfg: ModelConfig, n_tokens: int) -> int:
+    """Slots an expert has for ``n_tokens`` tokens of one data shard:
+    ``ceil(cf·n·k/E)`` rounded up to 8, at least 8."""
+    cap = int(np.ceil(cfg.capacity_factor * n_tokens * cfg.moe_top_k
+                      / cfg.n_experts))
+    return max(8, -(-cap // 8) * 8)
+
+
+def _moe_capacity(cfg: ModelConfig, n_tokens: int) -> int:
+    """Slots an expert has in the single-device path: rounded up to 128
+    (the buffer's C dim shards over any dp degree), at least 128."""
+    cap = int(np.ceil(cfg.capacity_factor * n_tokens * cfg.moe_top_k
+                      / cfg.n_experts))
+    return max(128, -(-cap // 128) * 128)
+
+
+def dropped_assignments(cfg: ModelConfig, router: torch.Tensor,
+                        x2: torch.Tensor, shards: int, cap: int) -> int:
+    """Token-expert assignments a dispatch drops: ``x2``'s rows cut into
+    ``shards`` equal data shards, each expert taking at most ``cap`` of
+    a shard's (the EP paths: :func:`_ep_capacity` of a shard's rows, one
+    shard for the stationary path; the single-device path:
+    :func:`_moe_capacity` of all rows, one shard)."""
+    with torch.no_grad():
+        _, idx = _router_weights(cfg, x2.float() @ router)
+        shard = torch.arange(x2.shape[0], device=x2.device) // (
+            x2.shape[0] // shards)
+        load = torch.zeros(shards * cfg.n_experts, dtype=torch.int64,
+                           device=x2.device)
+        load.index_add_(0, (shard[:, None] * cfg.n_experts + idx).reshape(-1),
+                        torch.ones(idx.numel(), dtype=torch.int64,
+                                   device=x2.device))
+        return int((load - cap).clamp(min=0).sum())
+
+
+def _ep_dispatch(cfg: ModelConfig, w: torch.Tensor, idx: torch.Tensor,
+                 m_idx: int, e_loc: int, n_loc: int, cap: int):
+    """Inverse map of a position's dispatch: ``(src, wgt)``, each
+    ``(e_loc, cap)``, the token (``n_loc`` where empty) and router weight
+    in each slot of its local experts; assignments past ``cap`` drop."""
+    k = cfg.moe_top_k
+    dev = w.device
+    rel = idx - m_idx * e_loc
+    mine = (rel >= 0) & (rel < e_loc)
+    flat_le = torch.where(mine, rel, torch.full_like(rel, e_loc)).reshape(-1)
+    flat_w = (w * mine).reshape(-1)
+    order = torch.argsort(flat_le, stable=True)
+    se = flat_le[order]
+    sw = flat_w[order]
+    tok = order // k
+    pos = torch.arange(n_loc * k, device=dev) - torch.searchsorted(
+        se, se, side="left")
+    keep = (se < e_loc) & (pos < cap)
+    at = (torch.where(keep, se, torch.full_like(se, e_loc)),
+          torch.where(keep, pos, torch.full_like(pos, cap)))
+    src = torch.full((e_loc + 1, cap + 1), n_loc, dtype=torch.int64,
+                     device=dev)
+    src.index_put_(at, torch.where(keep, tok, torch.full_like(tok, n_loc)))
+    wgt = torch.zeros((e_loc + 1, cap + 1), dtype=torch.float32,
+                      device=dev).index_put(
+        at, torch.where(keep, sw, torch.zeros_like(sw)))
+    return src[:e_loc, :cap], wgt[:e_loc, :cap]
+
+
+def _ep_gather(x: torch.Tensor, src: torch.Tensor, n: int) -> torch.Tensor:
+    """The (e_loc, C, ·) capacity buffer: each slot's token, 0 if empty."""
+    filled = (src < n)[..., None].to(x.dtype)
+    return x[src.clamp(0, n - 1)] * filled
+
+
+def _ep_combine(out: torch.Tensor, src: torch.Tensor, wgt: torch.Tensor,
+                n: int, dtype: torch.dtype) -> torch.Tensor:
+    """The experts' outputs weighted by the router, added back to their
+    tokens: an (n, d) partial."""
+    d = out.shape[-1]
+    upd = (out * wgt[..., None].to(out.dtype)).reshape(-1, d)
+    y = torch.zeros((n, d), dtype=dtype, device=out.device)
+    return y.index_add(0, src.reshape(-1).clamp(0, n - 1), upd.to(dtype))
+
+
+def _swiglu(hgate: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    g, up = hgate.chunk(2, dim=-1)
+    return F.silu(g.float()).to(dtype) * up
+
+
+def _ep_local_compute(cfg: ModelConfig, x_loc, router, wi_loc, wo_loc,
+                      e_loc: int, m_idx: int, cap: int) -> torch.Tensor:
+    """Per-position MoE dispatch → grouped GEMM → weighted combine.
+
+    Inverse-map formulation: only (e_loc, C) int maps are scattered; the
+    (n·k, d) gathered-token tensor is never materialized."""
+    n_loc = x_loc.shape[0]
+    logits = x_loc.float() @ router
+    w, idx = _router_weights(cfg, logits)              # (n_loc, k)
+    src, wgt = _ep_dispatch(cfg, w, idx, m_idx, e_loc, n_loc, cap)
+    hgate = einsum("ecd,edf->ecf", _ep_gather(x_loc, src, n_loc), wi_loc)
+    out = einsum("ecf,efd->ecd", _swiglu(hgate, x_loc.dtype), wo_loc)
+    return _ep_combine(out, src, wgt, n_loc, x_loc.dtype)
+
+
+def _coord(mesh, idx: tuple, axes) -> int:
+    """A position's index along ``axes`` taken together, row-major."""
+    c = dict(zip(mesh.axis_names, idx))
+    b = 0
+    for a in axes:
+        b = b * mesh.shape[a] + c[a]
+    return b
+
+
+def _on(mesh, idx: tuple, streams: bool):
+    """Run the body on a position's stream (``FilterMesh.use``), or, with
+    ``streams=False``, on the caller's current stream."""
+    return mesh.use(idx) if streams else contextlib.nullcontext()
+
+
+def _locals(dev: torch.device, *cuts) -> list[torch.Tensor]:
+    """A position's slices ``(tensor, index)`` of the caller's tensors,
+    taken on the caller's stream (where a parameter's gradient then
+    accumulates): a view on the same device, else a copy."""
+    return [t[sl] if t.device == dev else t[sl].to(dev) for t, sl in cuts]
+
+
+def _keep(stream, tensors) -> None:
+    """Keep the caller's tensors alive for a position's stream."""
+    if stream is not None:
+        for t in tensors:
+            t.record_stream(stream)
+
+
+def _psum(mesh, parts: dict, axes: tuple, streams: bool) -> dict:
+    """``jax.lax.psum`` over ``axes``: the partials of each group of
+    positions that differ only along ``axes`` are copied to the group's
+    first position and added there in row-major order, and the sum is
+    copied back to every position of the group."""
+    groups: dict[tuple, list] = {}
+    for idx in mesh.positions():
+        key = tuple(i for a, i in zip(mesh.axis_names, idx) if a not in axes)
+        groups.setdefault(key, []).append(idx)
+    out = {}
+    for group in groups.values():
+        root = group[0]
+        dev = mesh.device(root)
+        with _on(mesh, root, streams) as rs:
+            total = parts[root]
+            for m in group[1:]:
+                if rs is not None:
+                    rs.wait_stream(mesh.stream(m))
+                    parts[m].record_stream(rs)
+                total = total + parts[m].to(dev)
+        for m in group:
+            with _on(mesh, m, streams) as ms:
+                if ms is not None and m != root:
+                    ms.wait_stream(rs)
+                    total.record_stream(ms)
+                out[m] = total.to(mesh.device(m))
+    return out
+
+
+def _join(mesh, parts: dict, streams: bool) -> dict:
+    """Order the caller's stream after the positions' work and keep their
+    outputs alive for it."""
+    if not streams:
+        return parts
+    for idx, t in parts.items():
+        s = mesh.stream(idx)
+        if s is not None:
+            cur = torch.cuda.current_stream(s.device)
+            cur.wait_stream(s)
+            t.record_stream(cur)
+    return parts
+
+
+def _moe_ep_shardmap(cfg: ModelConfig, p: Params, x2: torch.Tensor, mesh,
+                     streams: bool = True) -> torch.Tensor:
+    """Expert-parallel MoE dispatch, one part a position.
+
+    * tokens stay on their data shard (activations are model-replicated,
+      so no token exchange is needed at all);
+    * each (data i, model m) position routes shard i's tokens to ITS
+      e_loc = E/tp experts, packs them by inverse-map gather into an
+      (e_loc, C, d) capacity buffer (never materializing (n·k, d)),
+      runs the grouped SwiGLU GEMM, scatter-adds weighted outputs;
+    * the combine is one psum over "model".
+
+    Capacity is enforced per (expert × data shard) — the standard EP
+    behaviour.  Routing/top-k math is identical to :func:`moe`.
+    ``streams=False`` runs the positions one after another on the
+    caller's stream."""
+    dp_axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    tp = mesh.shape["model"]
+    e = cfg.n_experts
+    if e % tp:
+        raise ValueError(f"{e} experts on a {tp}-wide model axis")
+    e_loc = e // tp
+    n = x2.shape[0]
+    dp_size = int(np.prod([mesh.shape[a] for a in dp_axes]))
+    n_loc = n // dp_size
+    cap = _ep_capacity(cfg, n_loc)
+    parts = {}
+    for idx in mesh.positions():
+        dev = mesh.device(idx)
+        i = _coord(mesh, idx, dp_axes)
+        m = _coord(mesh, idx, ("model",))
+        experts = (slice(m * e_loc, (m + 1) * e_loc),)
+        ins = _locals(dev, (x2, (slice(i * n_loc, (i + 1) * n_loc),)),
+                      (p["router"], ()), (p["wi"], experts),
+                      (p["wo"], experts))
+        with _on(mesh, idx, streams) as s:
+            _keep(s, ins)
+            parts[idx] = _ep_local_compute(cfg, *ins, e_loc, m, cap)
+    y = _join(mesh, _psum(mesh, parts, ("model",), streams), streams)
+    rows = {}
+    for idx in mesh.positions():            # out_specs P(dp, None)
+        rows.setdefault(_coord(mesh, idx, dp_axes), y[idx])
+    return torch.cat([rows[i].to(x2.device) for i in range(dp_size)])
+
+
+def _moe_ep_stationary(cfg: ModelConfig, p: Params, x2: torch.Tensor, mesh,
+                       streams: bool = True) -> torch.Tensor:
+    """Weights-stationary MoE for tiny token counts (decode).
+
+    Weights never move: wi stays sharded on its d (contraction) dim and
+    wo on its f dim over "data"; the tiny token batch is feature-sharded
+    in, and three small activation psums (router logits and hgate over
+    "data", the combined output over ("model", "data")) complete the
+    contractions.  Capacity covers the whole global batch.
+    ``streams=False`` runs the positions one after another on the
+    caller's stream."""
+    tp = mesh.shape["model"]
+    data_size = mesh.shape.get("data", 1)
+    e = cfg.n_experts
+    e_loc = e // tp
+    n, d = x2.shape
+    d_loc = d // data_size
+    f_loc = cfg.d_expert // data_size
+    cap = _ep_capacity(cfg, n)
+    pos = mesh.positions()
+    coords = {idx: (_coord(mesh, idx, ("model",)),
+                    _coord(mesh, idx, ("data",))) for idx in pos}
+    x_sl, wi_loc, wo_loc, part = {}, {}, {}, {}
+    for idx in pos:                          # routing from feature slices
+        m, di = coords[idx]
+        feat = slice(di * d_loc, (di + 1) * d_loc)
+        experts = slice(m * e_loc, (m + 1) * e_loc)
+        ins = _locals(mesh.device(idx), (x2, (slice(None), feat)),
+                      (p["wi"], (experts, feat)),
+                      (p["wo"], (experts, slice(di * f_loc,
+                                                (di + 1) * f_loc))),
+                      (p["router"], (feat,)))
+        x_sl[idx], wi_loc[idx], wo_loc[idx], router_sl = ins
+        with _on(mesh, idx, streams) as s:
+            _keep(s, ins)
+            part[idx] = x_sl[idx].float() @ router_sl
+    logits = _psum(mesh, part, ("data",), streams)
+    maps = {}
+    for idx in pos:                          # d-partial first GEMM
+        m, di = coords[idx]
+        with _on(mesh, idx, streams):
+            w, top = _router_weights(cfg, logits[idx])
+            maps[idx] = _ep_dispatch(cfg, w, top, m, e_loc, n, cap)
+            part[idx] = einsum("ecd,edf->ecf",
+                               _ep_gather(x_sl[idx], maps[idx][0], n),
+                               wi_loc[idx])
+    hgate = _psum(mesh, part, ("data",), streams)
+    for idx in pos:                          # f-partial second GEMM
+        m, di = coords[idx]
+        with _on(mesh, idx, streams):
+            hmid = _swiglu(hgate[idx], x2.dtype)
+            out = einsum("ecf,efd->ecd",
+                         hmid[:, :, di * f_loc:(di + 1) * f_loc], wo_loc[idx])
+            part[idx] = _ep_combine(out, *maps[idx], n, x2.dtype)
+    # NOT over "pod": pod replicas compute identical partials
+    y = _join(mesh, _psum(mesh, part, ("model", "data"), streams), streams)
+    return y[pos[0]].to(x2.device)           # out_specs P(None, None)
+
+
 def moe(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     """Token-choice top-k MoE with sort-based capacity dispatch.
 
@@ -444,6 +734,15 @@ def moe(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     batched product and the outputs are added back, weighted by the
     router, with ``index_add_`` (whose order over a token's k experts is
     not fixed on a card).
+
+    Under an active mesh context whose ``"model"`` axis divides the
+    experts, the dispatch runs expert-parallel, chosen as the JAX layer
+    chooses: :func:`_moe_ep_stationary` for n ≤ 2,048 tokens on a mesh
+    with ``"data"`` dividing both ``d_expert`` and ``d_model``, else
+    :func:`_moe_ep_shardmap` when the data-parallel size divides n, else
+    the single-device path below.  The EP paths' capacity is per expert
+    and data shard (:func:`_ep_capacity`), so they drop other tokens
+    than this path does.
     """
     b, l, d = x.shape
     n = b * l
@@ -451,11 +750,31 @@ def moe(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     e = cfg.n_experts
     x2 = x.reshape(n, d)
 
+    mesh = _mesh()
+    if mesh is not None and "model" in mesh.axis_names \
+            and e % mesh.shape["model"] == 0:
+        dp_size = int(np.prod([mesh.shape[a] for a in ("pod", "data")
+                               if a in mesh.axis_names]))
+        data_size = mesh.shape.get("data", 1)
+        stationary_ok = (
+            n <= 2048 and "data" in mesh.axis_names
+            and cfg.d_expert % data_size == 0
+            and cfg.d_model % data_size == 0)
+        y2 = None
+        if stationary_ok:
+            # decode: tokens are tiny — move activations, never weights
+            y2 = _moe_ep_stationary(cfg, p, x2, mesh)
+        elif n % max(dp_size, 1) == 0:
+            y2 = _moe_ep_shardmap(cfg, p, x2, mesh)
+        if y2 is not None:
+            if cfg.n_shared_experts:
+                y2 = y2 + mlp(cfg, p["shared"], x2)
+            return y2.reshape(b, l, d)
+
     logits = x2.float() @ p["router"]
     w, idx = _router_weights(cfg, logits)         # (n, k)
 
-    cap = int(np.ceil(cfg.capacity_factor * n * k / e))
-    cap = max(128, -(-cap // 128) * 128)
+    cap = _moe_capacity(cfg, n)
     cap_pad = cap + 128
 
     flat_e = idx.reshape(-1)                      # (n*k,)

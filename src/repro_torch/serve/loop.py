@@ -354,9 +354,12 @@ class ServeLoop:
             with self._lock:
                 self.counters["backpressure_waits"] += 1
             self._slots.acquire()
-        future = self._pool.submit(self._run_batch,
-                                   [r.payload for r in reqs])
+        # submit and enqueue under the completion lock: a worker may start
+        # the batch at once, and a swap the builder queues from then on
+        # must land behind it (a batch boundary), never in front
         with self._comp_cv:
+            future = self._pool.submit(self._run_batch,
+                                       [r.payload for r in reqs])
             self._completion.append((reqs, future))
             self._comp_cv.notify()
 

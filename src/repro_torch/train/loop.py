@@ -1,6 +1,6 @@
 """Fault-tolerant training loop.
 
-Counterpart of ``src/repro/train/loop.py``, on one device:
+Counterpart of ``src/repro/train/loop.py``:
 
 * auto-resume from the newest intact checkpoint;
 * an async checkpoint every ``ckpt_every`` steps, off the critical path
@@ -53,18 +53,21 @@ class LoopResult:
 def run_training(cfg: ModelConfig, loop: LoopConfig, *,
                  params: Any, opt_state: Any,
                  step_fn: Callable, batch_fn: Callable[[int], dict],
+                 shardings: Any = None,
                  log: Callable[[str], None] = print) -> LoopResult:
     """Drive step_fn with checkpoint/restart/preemption semantics.
 
     ``step_fn(params, opt_state, batch, step_idx) -> (params, opt, metrics)``
     ``batch_fn(step) -> batch dict`` (deterministic per step).  A
     restored checkpoint lands on the devices of ``params`` and
-    ``opt_state``'s leaves.
+    ``opt_state``'s leaves, or, with ``shardings`` (for the tree
+    ``(params, opt_state)``), is placed on the mesh's positions by the
+    store (elastic restore).
     """
     store = CheckpointStore(loop.ckpt_dir)
     resumed_from = None
     start = 0
-    restored = store.restore_latest((params, opt_state))
+    restored = store.restore_latest((params, opt_state), shardings)
     if restored is not None:
         start, (params, opt_state), manifest = restored
         resumed_from = start

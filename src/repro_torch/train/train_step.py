@@ -16,8 +16,9 @@ import torch
 
 from ..models import transformer as T
 from ..models.config import ModelConfig
-from .optimizer import Optimizer, global_norm
+from ..sharding.placement import is_placed
 from ..tree import tree_leaves, tree_unflatten
+from .optimizer import Optimizer, global_norm
 
 
 def _split_micro(batch: dict, ga: int) -> dict:
@@ -77,9 +78,18 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer,
     :mod:`.compression`) applied between the gradients and the
     optimizer.  The optimizer updates ``params`` and ``opt_state`` in
     place (the JAX step's donated buffers) and the step returns them.
+
+    The step takes plain tensors.  A tree placed on a mesh (an elastic
+    restore with ``shardings``) raises ``NotImplementedError``: the
+    sharded train step is ROADMAP item 14g, and gathering the tree here
+    would hide that it is missing.
     """
 
     def step(params, opt_state, batch, step_idx):
+        if is_placed((params, opt_state)):
+            raise NotImplementedError(
+                "the train step takes plain tensors; a tree placed on a "
+                "mesh needs the sharded train step (ROADMAP item 14g)")
         grads, metrics = grads_and_metrics(cfg, params, batch)
         if compress is not None:
             grads, opt_state = compress(grads, opt_state)

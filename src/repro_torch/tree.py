@@ -7,7 +7,8 @@ and the checkpoint keys are the leaves' key paths, both in the order
 order.  ``torch.utils._pytree`` walks a dict in insertion order, and the
 port's ``init_model`` inserts keys unsorted, so it is not a substitute.
 ``None`` is an empty subtree, as in JAX; anything else that is not a
-dict, list or tuple is a leaf.
+dict, list or tuple is a leaf, and so is a node that ``is_leaf`` accepts
+(a tree of sharding specs, which are tuples, as JAX's ``is_leaf``).
 """
 from __future__ import annotations
 
@@ -16,22 +17,28 @@ from typing import Any, Callable, Iterator
 Path = tuple  # of dict keys and sequence indices
 
 
-def tree_flatten_with_path(tree: Any, path: Path = ()
+def tree_flatten_with_path(tree: Any, path: Path = (), *,
+                           is_leaf: Callable | None = None
                            ) -> Iterator[tuple[Path, Any]]:
     """``(path, leaf)`` pairs in JAX's leaf order."""
-    if isinstance(tree, dict):
+    if is_leaf is not None and is_leaf(tree):
+        yield path, tree
+    elif isinstance(tree, dict):
         for k in sorted(tree):
-            yield from tree_flatten_with_path(tree[k], path + (k,))
+            yield from tree_flatten_with_path(tree[k], path + (k,),
+                                              is_leaf=is_leaf)
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
-            yield from tree_flatten_with_path(v, path + (i,))
+            yield from tree_flatten_with_path(v, path + (i,),
+                                              is_leaf=is_leaf)
     elif tree is not None:
         yield path, tree
 
 
-def tree_leaves(tree: Any) -> list:
+def tree_leaves(tree: Any, *, is_leaf: Callable | None = None) -> list:
     """The leaves, in JAX's order."""
-    return [leaf for _, leaf in tree_flatten_with_path(tree)]
+    return [leaf for _, leaf in tree_flatten_with_path(tree,
+                                                       is_leaf=is_leaf)]
 
 
 def key_of(path: Path) -> str:
@@ -57,13 +64,16 @@ def tree_unflatten(like: Any, leaves: list) -> Any:
     return tree_map_with_path(lambda p, _: slot[p], like)
 
 
-def tree_map_with_path(fn: Callable, tree: Any, path: Path = ()) -> Any:
+def tree_map_with_path(fn: Callable, tree: Any, path: Path = (), *,
+                       is_leaf: Callable | None = None) -> Any:
     """``fn(path, leaf)`` over the leaves, keeping the structure."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(path, tree)
     if isinstance(tree, dict):
-        return {k: tree_map_with_path(fn, v, path + (k,))
+        return {k: tree_map_with_path(fn, v, path + (k,), is_leaf=is_leaf)
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        out = [tree_map_with_path(fn, v, path + (i,))
+        out = [tree_map_with_path(fn, v, path + (i,), is_leaf=is_leaf)
                for i, v in enumerate(tree)]
         return out if isinstance(tree, list) else tuple(out)
     if tree is None:

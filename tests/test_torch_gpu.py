@@ -28,11 +28,19 @@ within ``MODEL_TOL``), prefill then decode against the full forward,
 the serving CLI's ``main`` on the card (K2 launched).  Training:
 ``train_loss``, its gradients and 3 AdamW steps on the card against the
 CPU, and a ``CheckpointStore`` round trip of a tree of card tensors with
-an in-place step between the asynchronous save and its write.  The file
-imports nothing of JAX, so it runs where only the port is installed.
+an in-place step between the asynchronous save and its write.  The LM
+substrate on a mesh: a parameter tree placed on a 2 x 2 grid of the card
+by the rule shardings, the elastic restore flow there (float32 and
+bfloat16, bit for bit), and both expert-parallel MoE branches on the
+grid, each position on its own stream, against the card's single-device
+``moe`` and the CPU's expert-parallel one.  The file imports nothing of
+JAX, so it runs where only the port is installed.
 """
+import contextlib
+import sys
 import threading
 import time
+import traceback
 
 import numpy as np
 import pytest
@@ -574,6 +582,10 @@ def test_serve_loop_on_card_equals_route_bytes(cuda, sparse):
     assert ticket_routes(tickets) == stage_routes(stage(), raw)
 
 
+#: seconds every wait of :func:`swap_with_batches_in_flight` shares
+SWAP_BUDGET_S = 45.0
+
+
 def swap_with_batches_in_flight(device, **stage_kw):
     """A hot swap that commits while two batches are in flight.
 
@@ -604,34 +616,62 @@ def swap_with_batches_in_flight(device, **stage_kw):
     st = stage(qs, **stage_kw)
     orig = st._filter_bytebatch
     release = threading.Event()
+    gate = [True]                # only batch A's first run is held
     epochs = []
+    # one budget for every wait below, so a failure costs under a minute
+    deadline = time.monotonic() + SWAP_BUDGET_S
+
+    def left():
+        return max(0.0, deadline - time.monotonic())
 
     def gated(bufs, record=True, epoch=None):
         epochs.append(epoch.epoch)
-        if bufs[0] == raw[0]:
-            assert release.wait(timeout=120), "batch A was never released"
+        if bufs[0] == raw[0] and gate:
+            gate.clear()
+            if not release.wait(timeout=left()):
+                raise AssertionError("batch A was never released")
         return orig(bufs, record=record, epoch=epoch)
 
     st._filter_bytebatch = gated
 
-    def wait_for(cond, what):
-        deadline = time.monotonic() + 120
+    def wait_for(cond, what, loop, tk=None):
+        """Poll ``cond``; fail at once with the build's error if the
+        subscribe failed, and with the builder thread's stack if the
+        budget runs out."""
         while not cond():
-            assert time.monotonic() < deadline, f"never saw {what}"
+            if tk is not None and tk.done.is_set():
+                raise AssertionError(
+                    f"never saw {what}: the subscribe ended first, error "
+                    f"{tk.error!r}") from tk.error
+            if not left():
+                frame = sys._current_frames().get(loop._builder_t.ident)
+                where = ("".join(traceback.format_stack(frame))
+                         if frame is not None else "(builder exited)")
+                raise AssertionError(
+                    f"never saw {what} in {SWAP_BUDGET_S} s; epochs "
+                    f"{epochs}; the plan builder was at:\n{where}")
             time.sleep(0.005)
+
+    def swap_queued(loop):
+        with loop._comp_cv:
+            items = list(loop._completion)
+        return any(item is not None and item[0] == "swap" for item in items)
 
     with ServeLoop(st, max_batch=4, deadline_ms=60_000, queue_cap=64,
                    max_inflight=3) as loop:
-        a = [loop.submit(p) for p in raw[:4]]
-        wait_for(lambda: len(epochs) == 1, "batch A in the stage")
-        tk = loop.subscribe(new_q)
-        wait_for(lambda: any(item is not None and item[0] == "swap"
-                             for item in list(loop._completion)),
-                 "the swap queued")
-        cd = [loop.submit(p) for p in raw[4:12]]
-        wait_for(lambda: len(epochs) == 3, "batches C and D in the stage")
-        release.set()
-        assert tk.done.wait(timeout=120) and tk.error is None
+        try:
+            a = [loop.submit(p) for p in raw[:4]]
+            wait_for(lambda: len(epochs) == 1, "batch A in the stage", loop)
+            tk = loop.subscribe(new_q)
+            wait_for(lambda: swap_queued(loop), "the swap queued", loop, tk)
+            cd = [loop.submit(p) for p in raw[4:12]]
+            wait_for(lambda: len(epochs) == 3,
+                     "batches C and D in the stage", loop)
+        finally:
+            # a failed wait must not leave batch A (and the loop's close)
+            # held until the gate's own timeout
+            release.set()
+        assert tk.done.wait(timeout=left()) and tk.error is None
         e = [loop.submit(p) for p in raw[12:]]
     assert tk.gid == 16 and loop.swap_log[0]["epoch"] == 1
     assert epochs == [0, 0, 0, 1]
@@ -1215,3 +1255,140 @@ def test_checkpoint_roundtrip_of_card_tensors(cuda, tmp_path):
     assert not torch.equal(tree_leaves(params)[0].cpu(), before[0])
     host, _ = store.restore(1, (params, state), device="cpu")
     assert tree_leaves(host)[0].device.type == "cpu"
+
+
+# ------------------------------------------------------ the LM on a mesh
+def _card_grid(cuda):
+    from repro_torch.launch.mesh import make_host_mesh
+
+    return make_host_mesh(2, devices=[cuda] * 4)
+
+
+def test_placement_on_a_2x2_card_grid(cuda):
+    """The rule shardings of reduced qwen3-0.6b on a 2 x 2 grid of the
+    card: each position's shard is a view of one copy on the card, of its
+    block's shape; gathering gives the tree back."""
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import rules as R
+    from repro_torch.sharding.placement import device_put, gather
+    from repro_torch.tree import tree_leaves
+
+    cfg, params, _ = _model("qwen3-0.6b")
+    mesh = _card_grid(cuda)
+    sh = R.param_shardings(cfg, T.init_model(cfg, None), mesh)
+    placed = device_put(params, sh)
+    split = 0
+    for leaf, want in zip(tree_leaves(placed), tree_leaves(params)):
+        shards = [leaf.shards[i] for i in mesh.positions()]
+        assert all(t.device.type == "cuda" for t in shards)
+        assert len({t.untyped_storage().data_ptr() for t in shards}) == 1
+        assert all(tuple(t.shape) == leaf.sharding.shard_shape(leaf.shape)
+                   for t in shards)
+        split += not leaf.sharding.is_fully_replicated
+        assert torch.equal(gather(leaf).cpu(), want)
+    assert split > 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_elastic_restore_flow_on_card(cuda, tmp_path, dtype):
+    """Save card tensors from one device → restore onto the 2 x 2 card
+    grid → save from the placed layout → restore replicated on the card,
+    each bit for bit."""
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import rules as R
+    from repro_torch.sharding.placement import PlacedTensor, gather
+    from repro_torch.tree import tree_leaves
+
+    cfg, params, _ = _model("qwen3-0.6b")
+    cfg = cfg.with_(param_dtype=dtype)
+    params = _to(T.init_model(cfg, torch.Generator().manual_seed(0)), cuda)
+    store = CheckpointStore(str(tmp_path))
+    store.save(3, params)
+    sh = R.param_shardings(cfg, T.init_model(cfg, None), _card_grid(cuda))
+    _, placed, _ = store.restore_latest(params, sh)
+    leaves = tree_leaves(placed)
+    assert all(isinstance(x, PlacedTensor) for x in leaves)
+    assert any(not x.sharding.is_fully_replicated for x in leaves)
+    for got, want in zip(leaves, tree_leaves(params)):
+        assert got.dtype == want.dtype
+        assert torch.equal(gather(got), want)
+    store.save(4, placed)
+    _, back, _ = store.restore_latest(params)
+    for got, want in zip(tree_leaves(back), tree_leaves(params)):
+        assert got.device.type == "cuda" and torch.equal(got, want)
+
+
+#: runs of each expert-parallel branch held against one reference
+EP_REPEATS = 5
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "deepseek-v3-671b"])
+@pytest.mark.parametrize("shape,branch", [((4, 8), "stationary"),
+                                          ((4, 552), "shardmap")])
+def test_moe_ep_branches_on_card(cuda, no_tf32, arch, shape, branch):
+    """Both EP branches on the 2 x 2 card grid, positions on their own
+    streams: forward within 1e-4 and the gradients of router, wi and wo
+    within 1e-5 of the largest, against the card's single-device moe (no
+    token dropped by either) and the CPU's EP; and equal to the same
+    dispatch with its positions one after another on one stream."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.sharding import mesh_context
+
+    cfg = get_config(arch, reduced=True)
+    p = L.init_moe(cfg, torch.Generator().manual_seed(0))
+    x = torch.randn(shape + (cfg.d_model,),
+                    generator=torch.Generator().manual_seed(1))
+    x2 = x.reshape(-1, cfg.d_model)
+    shards = 1 if branch == "stationary" else 2
+    assert L.dropped_assignments(cfg, p["router"], x2, shards, L._ep_capacity(
+        cfg, x2.shape[0] // shards)) == 0
+    assert L.dropped_assignments(cfg, p["router"], x2, 1, L._moe_capacity(
+        cfg, x2.shape[0])) == 0
+
+    def run(dev, mesh):
+        q = {k: v.detach().to(dev).requires_grad_(True)
+             for k, v in p.items() if isinstance(v, torch.Tensor)}
+        q.update({k: _to(v, dev) for k, v in p.items() if isinstance(v, dict)})
+        with mesh_context(mesh) if mesh is not None else \
+                contextlib.nullcontext():
+            y = L.moe(cfg, q, x.to(dev))
+        (y ** 2).sum().backward()
+        torch.cuda.synchronize() if dev.type == "cuda" else None
+        return y.detach().cpu(), {k: q[k].grad.cpu()
+                                  for k in ("router", "wi", "wo")}
+
+    taken = []
+    orig = getattr(L, f"_moe_ep_{branch}")
+
+    def count(*a, **k):
+        taken.append(branch)
+        return orig(*a, **k)
+
+    L_attr = f"_moe_ep_{branch}"
+    setattr(L, L_attr, count)
+    try:
+        # repeated: a missing order between the position streams (forward
+        # or backward) would show as a run far from the others
+        eps = [run(cuda, _card_grid(cuda)) for _ in range(EP_REPEATS)]
+        host = run(torch.device("cpu"), make_host_mesh(
+            2, devices=["cpu"] * 4))
+    finally:
+        setattr(L, L_attr, orig)
+    assert taken == [branch] * (EP_REPEATS + 1)
+    one = run(cuda, None)
+    for (y, g), (y_ref, g_ref) in [(ep, one) for ep in eps] + [
+            (eps[0], host)]:
+        assert float((y - y_ref).abs().max()) < 1e-4
+        for k in g:
+            d = float((g[k] - g_ref[k]).abs().max())
+            assert d / (float(g_ref[k].abs().max()) + 1e-9) < 1e-5, (k, d)
+    seq = getattr(L, L_attr)(cfg, {k: v.to(cuda) if isinstance(
+        v, torch.Tensor) else _to(v, cuda) for k, v in p.items()},
+        x2.to(cuda), _card_grid(cuda), streams=False)
+    par = getattr(L, L_attr)(cfg, {k: v.to(cuda) if isinstance(
+        v, torch.Tensor) else _to(v, cuda) for k, v in p.items()},
+        x2.to(cuda), _card_grid(cuda))
+    torch.testing.assert_close(par, seq, rtol=0, atol=1e-5)

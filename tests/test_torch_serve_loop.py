@@ -560,6 +560,51 @@ def test_2d_hot_swap_with_batches_in_flight():
         mesh=_cpu_mesh(2, 2)) == [0, 0, 0, 1]
 
 
+def test_swap_queued_once_a_batch_runs_commits_behind_it():
+    """A subscribe queued while a worker is already filtering a batch
+    commits after that batch is delivered (a batch boundary).  The
+    batcher's hand-off is stretched on purpose: the subscribe is made
+    just after the batch's submit, before ``_dispatch`` could record the
+    batch's place in the completion order; a swap that got in front of
+    the batch would commit first.  (Under load the same window once let
+    the swap commit unseen, and the 2-D hot-swap test waited for it.)"""
+    profiles, d, raw = _workload(n_docs=4)
+    st = _stage(profiles, d)
+    running = threading.Event()
+    filt = st._filter_bytebatch
+
+    def filter_bytebatch(bufs, record=True, epoch=None):
+        running.set()
+        return filt(bufs, record=record, epoch=epoch)
+
+    st._filter_bytebatch = filter_bytebatch
+    order, tickets = [], []
+    with ServeLoop(st, max_batch=BATCH, deadline_ms=60_000, queue_cap=64,
+                   max_inflight=2) as loop:
+        submit, resolve, commit = (loop._pool.submit, loop._resolve,
+                                   loop._commit_swap)
+
+        def stretched_submit(fn, *args):
+            future = submit(fn, *args)
+            assert running.wait(timeout=30)
+            tickets.append(loop.subscribe(profiles[0]))
+            deadline = time.monotonic() + 1.0   # the builder's chance
+            while time.monotonic() < deadline and not any(
+                    item is not None and item[0] == "swap"
+                    for item in list(loop._completion)):
+                time.sleep(0.005)
+            return future
+
+        loop._pool.submit = stretched_submit
+        loop._resolve = lambda *a: (order.append("batch"), resolve(*a))[1]
+        loop._commit_swap = lambda *a: (order.append("swap"), commit(*a))[1]
+        reqs = [loop.submit(p) for p in raw]
+        assert all(r.done.wait(timeout=30) for r in reqs)
+        assert tickets and tickets[0].done.wait(timeout=30)
+    assert tickets[0].error is None and order == ["batch", "swap"]
+    assert [r.epoch for r in reqs] == [0] * len(raw)
+
+
 class TestRouteBytesPipelinedKDeep:
     """The K-deep pipelined route on a data-sharded stage (a 2 x 1 grid of
     the CPU device): routes as ``route_bytes`` at any depth, stages each
