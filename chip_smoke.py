@@ -185,7 +185,29 @@ printed as it runs; any failure exits non-zero:
    stream; ms a branch (CUDA events) and peak memory; reduced qwen3-moe
    and deepseek-v3 on the grid against the CPU port's expert-parallel
    path, both branches;
-14. the end-to-end line, one ``{"kernels": [...]}`` line, the card line,
+14. the cell table, the meta-device dry run and the sharded train step
+   (the steps launch no kernel of the table; their byte ingest launches
+   K5 and K6): (a) every cell of ``enumerate_cells`` at both production
+   meshes from its specs (argument and gradient bytes a position,
+   ``fits_h100_80g``), and the qwen3-0.6b and qwen3-moe-30b-a3b
+   ``train_4k`` cells' FLOPs and saved-activation estimate on the meta
+   device; (b) qwen3-0.6b at its published width (float32, remat,
+   ``ce_chunk`` 2,048, AdamW, TF32 off) on a 2 x 2 grid of the card,
+   parameters placed by ``param_shardings`` and the optimizer state by
+   ``opt_state_specs``, on ``build_filtered_pipeline(batch=2,
+   seq_len=4096, ingest="bytes")``'s batches (K5, K6): the sharded step's
+   loss and gathered gradients held to the one-device step's on the
+   card, the updates from the same gradients, a second step's loss, the
+   output shardings equal to the input's and the placed bytes a position
+   equal to the dry run's; step ms (CUDA events), tokens/s, TFLOP/s,
+   kernels and busy share (``torch.profiler``), peak memory beside the
+   dry run's estimate; (c) the same for qwen3-moe-30b-a3b at its
+   published widths with 2 of its 48 layers, at 4 x 4 tokens (the
+   weights-stationary dispatch) and 4 x 4,096 (the shard-map dispatch,
+   timed), each dispatch's dropped assignments counted (where any drop,
+   the reference is the sharded step with its positions one after
+   another);
+15. the end-to-end line, one ``{"kernels": [...]}`` line, the card line,
    and the result line.
 """
 from __future__ import annotations
@@ -304,6 +326,20 @@ MOE_ARCH, MOE_TOKENS = "qwen3-moe-30b-a3b", ((32, "stationary"),
 MOE_ZOO, MOE_ZOO_SHAPES = ("qwen3-moe-30b-a3b", "deepseek-v3-671b"), (
     (4, 8), (4, 552))
 MOE_FWD_TOL, MOE_GRAD_RTOL, MOE_TIMED_REPS = 1e-4, 1e-5, 3
+
+# phase 14, the cell table, the dry run and the sharded train step: every
+# cell at both production meshes from its specs, and the FLOPs of two
+# train cells on the meta device; the sharded step of qwen3-0.6b at its
+# published width on phase 13's 2 x 2 grid of the card, on phase 12(b)'s
+# batches (2 x 4,096 tokens from the byte ingest); qwen3-moe-30b-a3b at
+# its published widths with 2 of its 48 layers on the same grid, at 4
+# rows of 4 tokens (its 2 microbatches of 8 tokens take the
+# weights-stationary dispatch, whose capacity, 8, no expert can pass) and
+# of 4,096 (the shard-map dispatch); the bounds of phase 12(a)
+SHARDED_FLOP_CELLS = ("qwen3-0.6b", "qwen3-moe-30b-a3b")
+SHARDED_MOE_LAYERS = 2
+SHARDED_MOE_BATCHES = ((4, 4, "stationary"), (4, 4096, "shardmap"))
+SHARDED_TIMED_STEPS = 2
 
 # card peaks (H100 SXM data sheet): HBM bytes/s, the 32-bit non-tensor
 # rate, which bounds the kernels' integer bit operations and K6's float32
@@ -3271,20 +3307,23 @@ def moe_err(got: tuple, want: tuple) -> tuple[float, float]:
 
 class BranchLog:
     """For the length of a ``with``, list the expert-parallel branches
-    ``moe`` takes (``"stationary"``, ``"shardmap"``)."""
+    taken (``"stationary"``, ``"shardmap"``): by ``moe``, or, given the
+    dispatches' bodies' names, by the sharded train step."""
 
-    NAMES = ("_moe_ep_stationary", "_moe_ep_shardmap")
+    def __init__(self, names=("_moe_ep_stationary", "_moe_ep_shardmap")):
+        self.names = names
 
     def __enter__(self) -> list:
         from repro_torch.models import layers
 
         self.layers = layers
-        self.orig = {n: getattr(layers, n) for n in self.NAMES}
+        self.orig = {n: getattr(layers, n) for n in self.names}
         taken: list = []
 
         def logged(name, fn):
             def wrapper(*args, **kwargs):
-                taken.append(name[len("_moe_ep_"):])
+                taken.append("stationary" if "stationary" in name
+                             else "shardmap")
                 return fn(*args, **kwargs)
             return wrapper
         for n, fn in self.orig.items():
@@ -3517,6 +3556,410 @@ def mesh_lm_phase(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 14
+class MoeDrops:
+    """For the length of a ``with``, count each ``moe`` call's dropped
+    assignments at the expert-parallel capacity of ``shards`` data shards
+    (``dropped_assignments``), and at the single-device capacity."""
+
+    def __init__(self, cfg, shards: int, stationary: bool) -> None:
+        self.cfg, self.shards, self.stationary = cfg, shards, stationary
+
+    def __enter__(self) -> list:
+        from repro_torch.models import layers
+
+        self.layers, self.orig = layers, layers.moe
+        seen: list = []
+        cfg, orig = self.cfg, self.orig
+
+        def moe(c, p, x):
+            n = x.shape[0] * x.shape[1]
+            x2 = x.reshape(n, -1).detach()
+            shards = 1 if self.stationary else self.shards
+            seen.append((
+                layers.dropped_assignments(cfg, p["router"].detach(), x2,
+                                           shards, layers._ep_capacity(
+                                               cfg, n // shards)),
+                layers.dropped_assignments(cfg, p["router"].detach(), x2, 1,
+                                           layers._moe_capacity(cfg, n))))
+            return orig(c, p, x)
+        layers.moe = moe
+        return seen
+
+    def __exit__(self, *exc) -> None:
+        self.layers.moe = self.orig
+
+
+def placed_err(placed, plain, rtol: float, atol: float) -> tuple:
+    """(the largest |gathered - plain|, the largest ratio of a difference
+    to its bound ``atol + rtol·|plain|``), over the leaves."""
+    rows = leaf_ratios(placed, plain, rtol, atol)
+    # np.max keeps a NaN (Python's max would drop it)
+    return (float(np.max([0.0] + [r[2] for r in rows])),
+            float(np.max([0.0] + [r[1] for r in rows])))
+
+
+def leaf_ratios(got, want, rtol: float, atol: float) -> list:
+    """``(path, ratio, max difference)`` a leaf: the largest ratio of
+    ``|got - want|`` to ``atol + rtol·|want|``, in float64, a block of
+    rows at a time; placed leaves are gathered."""
+    from repro_torch.sharding.placement import PlacedTensor, gather
+    from repro_torch.tree import tree_flatten_with_path, tree_leaves
+
+    rows = []
+    for (path, a), b in zip(tree_flatten_with_path(got), tree_leaves(want)):
+        a = gather(a) if isinstance(a, PlacedTensor) else a
+        b = gather(b) if isinstance(b, PlacedTensor) else b
+        ratio = diff = 0.0
+        step = max(1, (1 << 24) // max(1, b[0].numel() if b.dim() else 1))
+        for i in range(0, max(1, b.shape[0] if b.dim() else 1), step):
+            x = a[i:i + step] if a.dim() else a
+            y = b[i:i + step].double() if b.dim() else b.double()
+            d = (x.double() - y).abs()
+            ratio = float(np.max([ratio, float(
+                (d / (atol + rtol * y.abs())).max())]))
+            diff = float(np.max([diff, float(d.max())]))
+        rows.append(("/".join(map(str, path)), ratio, diff))
+    return rows
+
+
+def sharded_case(what: str, cfg, pipe, grid, dev, *, timed: bool,
+                 drops_shards: int | None = None,
+                 stationary: bool = False) -> dict:
+    """One model on the grid: the one-device step's gradients, then the
+    sharded step's (held to them), the updates from the same gradients
+    (held), a second step through both step functions (losses held), the
+    shardings kept; then, with the one-device copies freed, timed steps
+    (CUDA events), the card's busy share and peak memory, beside the dry
+    run's estimate for this mesh and shape."""
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.cells import Cell
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import rules as R
+    from repro_torch.sharding.placement import (NamedSharding, PlacedTensor,
+                                                device_put, gather)
+    from repro_torch.train import make_optimizer, make_train_step
+    from repro_torch.train.train_step import grads_and_metrics
+    from repro_torch.tree import tree_leaves, tree_map_with_path
+
+    out: dict = {}
+    b0, b1 = pipe.batch_at(0), pipe.batch_at(1)
+    rows, seq = b0["tokens"].shape
+    opt = make_optimizer(cfg.optimizer)
+    params = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0))
+    out["param_bytes"] = sum(x.numel() * x.element_size()
+                             for x in tree_leaves(params))
+    if drops_shards is not None:
+        with MoeDrops(cfg, drops_shards, stationary) as seen:
+            m1 = grads_and_metrics(cfg, params, b0)[1]
+        out["dropped"] = [a for a, _ in seen]
+        out["dropped_single"] = [b for _, b in seen]
+    drops = sum(out.get("dropped", [])) + sum(out.get("dropped_single", []))
+    if not drops:
+        # the float32 steps are held to a float64 one-device step: at
+        # full width two float32 summation orders (the tied embedding's
+        # 8,192 lookups and 151,936-wide unembedding) part by more than
+        # phase 12(a)'s bound, and the one-device step's own distance
+        # from float64 is the yardstick (a MoE router stays float32: the
+        # model computes its logits in float32 whatever the dtypes)
+        out["ref"] = "a float64 one-device step"
+        c64 = cfg.with_(param_dtype="float64", activ_dtype="float64")
+        p64 = tree_map_with_path(
+            lambda path, x: x if path[-1] == "router" else x.double(),
+            params)
+        g64, m64 = grads_and_metrics(c64, p64, b0)
+        del p64
+        torch.cuda.empty_cache()
+        out["loss64"] = float(m64["loss"])
+        g1, m1 = grads_and_metrics(cfg, params, b0)
+        one = leaf_ratios(g1, g64, TRAIN_GRAD_RTOL, TRAIN_GRAD_ATOL)
+        g1 = g64
+        del g64
+        torch.cuda.empty_cache()
+    shapes = T.init_model(cfg, None)
+    pspecs = R.param_specs(cfg, shapes, grid)
+
+    def named(specs):
+        return tree_map_with_path(lambda _, s: NamedSharding(grid, s), specs,
+                                  is_leaf=R.is_spec)
+    placed = device_put(tree_map_with_path(lambda _, x: x.clone(), params),
+                        named(pspecs))
+    state = device_put(opt.init(params), named(D.opt_state_specs(
+        cfg.optimizer, shapes, pspecs, grid)))
+    before = [x.sharding for x in tree_leaves((placed, state))]
+    first = grid.positions()[0]
+    out["placed_bytes"] = sum(x.shards[first].numel()
+                              * x.shards[first].element_size()
+                              for x in tree_leaves((placed, state)))
+    cell = Cell(cfg.name, ShapeSpec("phase14", seq, rows, "train"), True)
+    t = time.perf_counter()
+    art = D.run_cell(cell, multi_pod=False, cfg=cfg, mesh=grid)
+    out["dryrun_s"] = time.perf_counter() - t
+    check(art["status"] == "ok", f"{what}: the dry run failed: "
+                                 f"{art.get('error')}")
+    out["dryrun"] = {k: art[k] for k in (
+        "params", "opt_state", "batch", "argument_B", "grad_B",
+        "saved_B_estimate", "per_position_B", "flops", "fits_h100_80g")}
+    check(out["placed_bytes"] == art["params"] + art["opt_state"],
+          f"{what}: the placed tree holds {out['placed_bytes']} bytes a "
+          f"position, the dry run counts {art['params']} + "
+          f"{art['opt_state']}")
+    if drops:
+        # tokens drop at another capacity than the one-device step's:
+        # hold the sharded step against itself with its positions one
+        # after another on this stream
+        from repro_torch.train import sharded_step
+
+        out["ref"] = "the sharded step, positions one after another"
+        g1, m1 = sharded_step.grads_and_metrics(cfg, placed, b0,
+                                                streams=False)
+    torch.cuda.empty_cache()
+    g2, m2 = grads_and_metrics(cfg, placed, b0)
+    out["loss"] = (float(m2["loss"]), float(m1["loss"]))
+    loss_rel = abs(out["loss"][0] / out["loss"][1] - 1)
+    check(loss_rel <= TRAIN_LOSS_RTOL,
+          f"{what}: loss {out['loss'][0]} against {out['ref']}'s "
+          f"{out['loss'][1]}")
+    ratios = leaf_ratios(g2, g1, TRAIN_GRAD_RTOL, TRAIN_GRAD_ATOL)
+    out["grad_diff"] = float(np.max([r[2] for r in ratios]))
+    if drops:
+        out["grad_ratio"] = float(np.max([r[1] for r in ratios]))
+        check(out["grad_ratio"] <= 1.0,
+              f"{what}: gathered gradients {out['grad_diff']:.3g} from "
+              f"{out['ref']}'s, {out['grad_ratio']:.3g} of the bound")
+    else:
+        # a leaf passes within the bound, or no farther from float64 than
+        # 1.5 times the float32 one-device step
+        out["grad_leaves"] = [(p, r, o[1])
+                              for (p, r, _), o in zip(ratios, one)]
+        worst = max(out["grad_leaves"],
+                    key=lambda x: x[1] / max(1.0, 1.5 * x[2]))
+        out["grad_ratio"], out["one_ratio"] = worst[1], worst[2]
+        out["grad_leaf"] = worst[0]
+        check(all(r <= max(1.0, 1.5 * o) for _, r, o in out["grad_leaves"]),
+              f"{what}: the gathered gradients' leaf {worst[0]} is "
+              f"{worst[1]:.3g} of the bound from the float64 step, the "
+              f"float32 one-device step's {worst[2]:.3g}")
+    del g1
+    torch.cuda.empty_cache()
+    # updates from the same gradients: the placed optimizer on the
+    # shards, then (their gradients freed first, to keep the peak of the
+    # 7.47 GB model inside the card) the one-device one on them gathered
+    opt.update(g2, state, placed, 0)
+    plain = tree_map_with_path(lambda _, g: gather(g), g2)
+    del g2
+    torch.cuda.empty_cache()
+    one_state = opt.init(params)
+    opt.update(plain, one_state, params, 0)
+    del plain
+    upd = max(placed_err(placed, params, 0.0, 1.0)[0],
+              placed_err(state, one_state, 0.0, 1.0)[0])
+    check(upd <= TRAIN_PARAM_TOL, f"{what}: after updates from the same "
+                                  f"gradients {upd:.3g} apart")
+    del one_state
+    torch.cuda.empty_cache()
+    step = make_train_step(cfg, opt)
+    got = step(placed, state, b1, np.int32(1))
+    check(got[0] is placed and got[1] is state
+          and all(isinstance(x, PlacedTensor) and x.sharding == s
+                  for x, s in zip(tree_leaves(got[:2]), before)),
+          f"{what}: the step's output shardings differ from its input's")
+    if not drops:
+        # the one-device step's loss at step 1 (its update is not needed)
+        want = grads_and_metrics(cfg, params, b1)[1]
+        rel1 = abs(float(got[2]["loss"]) / float(want["loss"]) - 1)
+        check(rel1 <= TRAIN_LOSS_RTOL, f"{what}: step 1's loss "
+              f"{float(got[2]['loss'])} against {float(want['loss'])}")
+        out["step1_loss"] = (float(got[2]["loss"]), float(want["loss"]))
+    del params
+    torch.cuda.empty_cache()
+    out.update(loss_rel=loss_rel, update_diff=upd)
+    if not timed:
+        return out
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for i in range(SHARDED_TIMED_STEPS):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        step(placed, state, (b0, b1)[i % 2], np.int32(2 + i))
+        ev[1].record()
+        ev[1].synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]))
+    out["step_ms"] = ms
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    busy = device_busy_us(lambda: step(placed, state, b0,
+                                       np.int32(2 + SHARDED_TIMED_STEPS)))
+    out["busy_ms"] = busy[0] / 1e3 if busy else None
+    out["kernels"] = busy[1] if busy else None
+    out["top_kernels"] = busy[2] if busy else None
+    best = min(ms)
+    out["tokens_per_s"] = rows * seq / best * 1e3
+    out["tflop_per_s"] = art["flops"] / best / 1e9
+    del placed, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_step_phase(dev) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.cells import Cell, enumerate_cells
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.config import SHAPES
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    out: dict = {"launches": {}}
+    total = torch.cuda.get_device_properties(0).total_memory
+    out["total_memory"] = total
+    say(f"phase 14: the cell table, the dry run and the sharded train step; "
+        f"the card's memory {total} bytes (the dry run's H100_80G_BYTES "
+        f"{D.H100_80G_BYTES}), {torch.cuda.memory_allocated() / 2**30:.2f} "
+        f"GiB still allocated by the earlier phases")
+    # (a) every cell at both production meshes, from its specs
+    t = time.perf_counter()
+    rows = [D.run_cell(c, multi_pod=mp, measure=False)
+            for c in enumerate_cells() for mp in (False, True)]
+    check(len(rows) == 80 and {r["status"] for r in rows} <= {"ok", "skip"},
+          f"(a) the cell table: {len(rows)} rows, statuses "
+          f"{sorted({r['status'] for r in rows})}")
+    ok = [r for r in rows if r["status"] == "ok"]
+    out["table"] = {(r["arch"], r["shape"], r["mesh"]): (
+        r["per_position_B"], r["fits_h100_80g"]) for r in ok}
+    say(f"(a) {len(rows)} rows ({len(ok)} runnable, "
+        f"{len(rows) - len(ok)} skipped) in {time.perf_counter() - t:.1f} s;"
+        f" fit an H100 80GB (argument and gradient bytes a position): "
+        f"{sum(r['fits_h100_80g'] for r in ok)} of {len(ok)}")
+    for arch in dict.fromkeys(r["arch"] for r in ok):
+        say(f"(a) {arch}: " + "; ".join(
+            f"{r['shape']} @ {r['mesh']} "
+            f"{r['per_position_B'] / 2**30:.2f} GiB"
+            f"{'' if r['fits_h100_80g'] else ' (does not fit)'}"
+            for r in ok if r["arch"] == arch))
+    out["flops"] = {}
+    for arch in SHARDED_FLOP_CELLS:
+        t = time.perf_counter()
+        art = D.run_cell(Cell(arch, SHAPES["train_4k"], True),
+                         multi_pod=False)
+        check(art["status"] == "ok", f"(a) {arch} train_4k: "
+                                     f"{art.get('error')}")
+        art["seconds"] = time.perf_counter() - t
+        out["flops"][arch] = art
+        say(f"(a) {arch} train_4k @ pod16x16 on the meta device in "
+            f"{art['seconds']:.1f} s: {art['flops']:.4g} FLOP "
+            f"({art['flops_per_position']:.4g} a position, even split), "
+            f"model_flops {art['model_flops']:.4g}; a position holds "
+            f"{art['argument_B'] / 2**30:.2f} GiB of arguments, "
+            f"{art['grad_B'] / 2**30:.2f} GiB of gradients and about "
+            f"{art['saved_B_estimate'] / 2**30:.2f} GiB of saved "
+            f"activations (estimate): {art['per_position_B'] / 2**30:.2f} "
+            f"GiB, fits_h100_80g {art['fits_h100_80g']}")
+
+    grid = make_host_mesh(MESH_LM_MODEL,
+                          devices=[dev] * (MESH_LM_DATA * MESH_LM_MODEL))
+    # (b) qwen3-0.6b at its published width on the byte ingest
+    cfg = get_config(LM_ARCH)
+    pipe, got = drive("(b) build_filtered_pipeline, bytes",
+                      lambda: train_cli.build_filtered_pipeline(
+                          TRAIN_BATCH, TRAIN_SEQ, log=lambda _: None,
+                          ingest="bytes", device=str(dev)), {"K5", "K6"})
+    out["launches"]["b"] = got
+    reset_counts()
+    t = time.perf_counter()
+    out["b"] = b = sharded_case(f"(b) {LM_ARCH}", cfg, pipe, grid, dev,
+                                timed=True)
+    b["s"] = time.perf_counter() - t
+    out["step_launches"] = counts()
+    report_case(f"(b) {LM_ARCH}, {TRAIN_BATCH} x {TRAIN_SEQ} tokens", b)
+    del pipe
+    # (c) qwen3-moe-30b-a3b at its published widths, 2 of 48 layers
+    mcfg = get_config(MOE_ARCH).with_(n_layers=SHARDED_MOE_LAYERS)
+    out["c"] = {}
+    for rows, seq, branch in SHARDED_MOE_BATCHES:
+        pipe, got = drive(f"(c) build_filtered_pipeline, bytes, {rows} x "
+                          f"{seq}", lambda: train_cli.build_filtered_pipeline(
+                              rows, seq, log=lambda _: None, ingest="bytes",
+                              device=str(dev)), {"K5", "K6"})
+        out["launches"][f"c/{branch}"] = got
+        reset_counts()
+        t = time.perf_counter()
+        with BranchLog(("_ep_stationary_parts",
+                        "_ep_shardmap_parts")) as taken:
+            c = sharded_case(f"(c) {MOE_ARCH}, {branch}", mcfg, pipe, grid,
+                             dev, timed=branch == "shardmap",
+                             drops_shards=MESH_LM_DATA,
+                             stationary=branch == "stationary")
+        c["s"] = time.perf_counter() - t
+        check(taken and set(taken) == {branch},
+              f"(c) {branch}: the sharded step took {sorted(set(taken))}")
+        step_counts = counts()
+        check(not any(step_counts.values()),
+              f"(c) the sharded steps launched {step_counts}")
+        out["c"][branch] = c
+        report_case(f"(c) {MOE_ARCH} ({SHARDED_MOE_LAYERS} of 48 layers, "
+                    f"{c['param_bytes'] / 1e9:.2f} GB float32), {rows} x "
+                    f"{seq} tokens, {branch}", c)
+        del pipe
+    check(not any(out["step_launches"].values()),
+          f"(b) the sharded steps launched {out['step_launches']}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"phase 14 in {out['phase_s']:.1f} s")
+    return out
+
+
+def report_case(what: str, r: dict) -> None:
+    d = r["dryrun"]
+    drops = (f"; dropped assignments a dispatch (each microbatch's forward "
+             f"and its recompute) {r['dropped']} (the single-device path's "
+             f"{r['dropped_single']})" if "dropped" in r else "")
+    if "one_ratio" in r:
+        grads = (f"gathered gradients against a float64 one-device step: "
+                 f"the farthest leaf ({r['grad_leaf']}) at {r['grad_ratio']:.3g}"
+                 f" of phase 12(a)'s bound (rtol {TRAIN_GRAD_RTOL}, atol "
+                 f"{TRAIN_GRAD_ATOL}), the float32 one-device step's "
+                 f"{r['one_ratio']:.3g} (every leaf within the bound or 1.5 "
+                 f"times the one-device step's); the float64 loss "
+                 f"{r['loss64']:.7f}")
+    else:
+        grads = (f"gathered gradients within {r['grad_diff']:.2e} of "
+                 f"{r['ref']}'s ({r['grad_ratio']:.3f} of the bound)")
+    say(f"{what}: loss {r['loss'][0]:.7f} against the float32 reference's "
+        f"{r['loss'][1]:.7f} ({r['loss_rel']:.2e} relative, tolerance "
+        f"{TRAIN_LOSS_RTOL}); {grads}; updates from the same gradients "
+        f"within {r['update_diff']:.2e} ({TRAIN_PARAM_TOL})"
+        + (f", step 1's loss {r['step1_loss'][0]:.7f} / "
+           f"{r['step1_loss'][1]:.7f}" if "step1_loss" in r else "")
+        + drops + f"; shardings kept; placed {r['placed_bytes']} bytes a "
+        f"position = the dry run's parameters {d['params']} + optimizer "
+        f"state {d['opt_state']}; {r['s']:.1f} s (dry run "
+        f"{r['dryrun_s']:.1f} s)")
+    if "step_ms" not in r:
+        return
+    busy = (f"{r['kernels']} kernels, the card busy {r['busy_ms']:.1f} ms "
+            f"({r['busy_ms'] / min(r['step_ms']):.1%} of the fastest step; "
+            f"torch.profiler, one step), most in " + "; ".join(
+                f"{k} {us / 1e3:.1f} ms x{n}" for k, us, n in
+                r["top_kernels"][:4])
+            if r["busy_ms"] else "busy share not measured (the trace held "
+            "no device time)")
+    say(f"{what}: steps " + ", ".join(f"{x:.1f}" for x in r["step_ms"])
+        + f" ms (CUDA events): {r['tokens_per_s']:.1f} tokens/s, "
+        f"{d['flops'] / 1e12:.2f} TFLOP a step (FlopCounterMode on the "
+        f"meta device) = {r['tflop_per_s']:.2f} TFLOP/s; peak device "
+        f"memory {r['peak_bytes'] / 2**30:.2f} GiB for the 4 positions, "
+        f"against the dry run's {d['per_position_B'] / 2**30:.2f} GiB a "
+        f"position (arguments {d['argument_B'] / 2**30:.2f}, gradients "
+        f"{d['grad_B'] / 2**30:.2f}, saved activations about "
+        f"{d['saved_B_estimate'] / 2**30:.2f}), "
+        f"{4 * d['per_position_B'] / 2**30:.2f} GiB for 4; {busy}")
+
+
 # ------------------------------------------------------------------- main
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3566,10 +4009,12 @@ def main() -> int:
     mesh_lm["launches"] = counts()
     check(not any(mesh_lm["launches"].values()),
           f"phase 13 launched {mesh_lm['launches']}")
+    # the sharded step's ingest launches K5 and K6, its steps none
+    sharded_lm = sharded_step_phase(dev)
 
     s = run["stats"]
     card = card_line()
-    say(f"phase 14: end to end on {card}: {len(run['payloads'])} documents, "
+    say(f"phase 15: end to end on {card}: {len(run['payloads'])} documents, "
         f"{run['n_bytes']} bytes in {run['e2e_s']:.3f} s = "
         f"{len(run['payloads']) / run['e2e_s']:.1f} docs/s, "
         f"{run['n_bytes'] / run['e2e_s'] / 1e6:.1f} MB/s (host clock around "
@@ -3615,6 +4060,11 @@ def main() -> int:
         f" s, MoE layer ({MOE_ARCH}) stationary "
         f"{mesh_lm['moe']['stationary']['ms']:.2f} ms, shard-map "
         f"{mesh_lm['moe']['shardmap']['ms']:.2f} ms forward + backward"
+        + f"; the sharded step on the grid: {LM_ARCH} "
+        f"{min(sharded_lm['b']['step_ms']):.1f} ms "
+        f"({sharded_lm['b']['tokens_per_s']:.1f} tokens/s), {MOE_ARCH} "
+        f"({SHARDED_MOE_LAYERS} layers) "
+        f"{min(sharded_lm['c']['shardmap']['step_ms']):.1f} ms"
         + f"; serve loop: sparse pub-sub p50 "
         f"{serving['sparse']['p50_ms']:.3f} / p99 "
         f"{serving['sparse']['p99_ms']:.3f} ms at "
@@ -3665,6 +4115,10 @@ def main() -> int:
             v[key] for v in train["cli_launches"].values())
         # phase 13: the LM substrate on a mesh (no filter kernel)
         row["lm_mesh_launches"] = mesh_lm["launches"][key]
+        # phase 14: the sharded step's byte ingest, (b)'s and (c)'s
+        # pipelines (K5, K6; the steps launch no kernel of the table)
+        row["lm_sharded_launches"] = sum(
+            v[key] for v in sharded_lm["launches"].values())
         row["mesh_positions"] = mesh["positions"]
         if key == "K2":
             row["mesh_position_ms"] = mesh["position_ms"]

@@ -81,6 +81,7 @@ class FilterMesh:
         self._devices = [resolve_device(d) for d in flat]
         self._dims = dims
         self._local = threading.local()
+        self._pinned: dict[int, Any] | None = None
 
     @property
     def shape(self) -> dict[str, int]:
@@ -128,10 +129,13 @@ class FilterMesh:
 
     def stream(self, idx: Sequence[int]):
         """This thread's CUDA stream of a position (``None`` off the card),
-        made at its first use."""
+        made at its first use; while :meth:`pinned_streams` holds, the
+        pinning thread's, in every thread."""
         dev = self.device(idx)
         if dev.type != "cuda":
             return None
+        if self._pinned is not None:
+            return self._pinned[self._flat(idx)]
         streams = getattr(self._local, "streams", None)
         if streams is None:
             streams = self._local.streams = {}
@@ -140,6 +144,21 @@ class FilterMesh:
         if s is None:
             s = streams[flat] = torch.cuda.Stream(dev)
         return s
+
+    @contextlib.contextmanager
+    def pinned_streams(self) -> Iterator[None]:
+        """For the length of a ``with``, every thread gets the calling
+        thread's stream of each position.  A train step pins them: autograd
+        runs the backward pass, and the recompute of a checkpointed layer,
+        in a thread of its own, and a position's recomputed activations
+        must come from the stream its backward ops run on, the forward's."""
+        prev = self._pinned
+        self._pinned = {self._flat(idx): self.stream(idx)
+                        for idx in self.positions()}
+        try:
+            yield
+        finally:
+            self._pinned = prev
 
     @contextlib.contextmanager
     def use(self, idx: Sequence[int]) -> Iterator[Any]:

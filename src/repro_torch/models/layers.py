@@ -208,11 +208,14 @@ def attention(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
               positions: torch.Tensor, causal: bool = True,
               cache: Params | None = None, cache_pos: int | None = None,
               kv_x: torch.Tensor | None = None,
-              window: int | None = None):
+              window: int | None = None,
+              head_mask: torch.Tensor | None = None):
     """GQA attention with optional KV cache and cross-attention.
 
     cache: {"k","v"} (B, T, KV, dh); cache_pos: the current length (a
     decode step writes its one token there, a prefill writes at 0).
+    ``head_mask`` replaces ``cfg``'s padded-head mask (a tensor-parallel
+    slice of the heads passes its part of the global one).
     Returns (y, cache).
     """
     b, l, d = x.shape
@@ -284,7 +287,7 @@ def attention(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     else:
         ctx = attend(qg, positions)
     ctx = ctx.reshape(b, l, h, dh)
-    hm = _head_mask(cfg, x.device)
+    hm = _head_mask(cfg, x.device) if head_mask is None else head_mask
     if hm is not None:
         ctx = ctx * hm[None, None, :, None].to(ctx.dtype)
     y = einsum("blhk,hkd->bld", ctx, p["wo"])
@@ -313,13 +316,15 @@ def init_mla(cfg: ModelConfig, gen: torch.Generator, lead=()) -> Params:
 def mla_attention(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
                   positions: torch.Tensor, cache: Params | None = None,
                   cache_pos: int | None = None,
-                  absorbed: bool | None = None):
+                  absorbed: bool | None = None,
+                  head_mask: torch.Tensor | None = None):
     """DeepSeek-V3 Multi-head Latent Attention.
 
     The cache holds the compressed kv latent (B, T, kv_rank) and the shared
     rope key (B, T, rope_dim).  ``absorbed`` folds w_uk into the query and
     w_uv into the output (the decode form); it defaults to True for a
-    one-token step with a cache, False otherwise.
+    one-token step with a cache, False otherwise.  ``head_mask`` as in
+    :func:`attention`.
     """
     b, l, d = x.shape
     h = cfg.n_heads_eff
@@ -383,7 +388,7 @@ def mla_attention(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
             positions.chunk(nc, dim=1))], dim=1)
     else:
         ctx = attend(q_nope, q_rope, positions)
-    hm = _head_mask(cfg, x.device)
+    hm = _head_mask(cfg, x.device) if head_mask is None else head_mask
     if hm is not None:
         ctx = ctx * hm[None, None, :, None].to(ctx.dtype)
     y = einsum("blhv,hvd->bld", ctx, p["wo"])
@@ -577,26 +582,32 @@ def _keep(stream, tensors) -> None:
             t.record_stream(stream)
 
 
-def _psum(mesh, parts: dict, axes: tuple, streams: bool) -> dict:
-    """``jax.lax.psum`` over ``axes``: the partials of each group of
-    positions that differ only along ``axes`` are copied to the group's
-    first position and added there in row-major order, and the sum is
-    copied back to every position of the group."""
+def _groups(mesh, axes: tuple) -> list[list[tuple]]:
+    """The positions in groups that differ only along ``axes``, each in
+    row-major order."""
     groups: dict[tuple, list] = {}
     for idx in mesh.positions():
         key = tuple(i for a, i in zip(mesh.axis_names, idx) if a not in axes)
         groups.setdefault(key, []).append(idx)
+    return list(groups.values())
+
+
+def _collect(mesh, parts: dict, axes: tuple, streams: bool, combine) -> dict:
+    """Each group's partials (:func:`_groups`) copied to its first position
+    and folded there by ``combine(list)``; the result copied back to every
+    position of the group."""
     out = {}
-    for group in groups.values():
+    for group in _groups(mesh, axes):
         root = group[0]
         dev = mesh.device(root)
         with _on(mesh, root, streams) as rs:
-            total = parts[root]
+            got = [parts[root]]
             for m in group[1:]:
                 if rs is not None:
                     rs.wait_stream(mesh.stream(m))
                     parts[m].record_stream(rs)
-                total = total + parts[m].to(dev)
+                got.append(parts[m].to(dev))
+            total = combine(got)
         for m in group:
             with _on(mesh, m, streams) as ms:
                 if ms is not None and m != root:
@@ -604,6 +615,29 @@ def _psum(mesh, parts: dict, axes: tuple, streams: bool) -> dict:
                     total.record_stream(ms)
                 out[m] = total.to(mesh.device(m))
     return out
+
+
+def _psum(mesh, parts: dict, axes: tuple, streams: bool) -> dict:
+    """``jax.lax.psum`` over ``axes``: the partials of each group of
+    positions that differ only along ``axes`` are copied to the group's
+    first position and added there in row-major order, and the sum is
+    copied back to every position of the group."""
+    return _collect(mesh, parts, axes, streams,
+                    lambda xs: functools.reduce(torch.add, xs))
+
+
+def _pmax(mesh, parts: dict, axes: tuple, streams: bool) -> dict:
+    """``jax.lax.pmax`` over ``axes``, as :func:`_psum`."""
+    return _collect(mesh, parts, axes, streams,
+                    lambda xs: functools.reduce(torch.maximum, xs))
+
+
+def _all_gather(mesh, parts: dict, axes: tuple, dim: int,
+                streams: bool) -> dict:
+    """``jax.lax.all_gather(..., tiled=True)`` over ``axes``: each group's
+    parts concatenated along ``dim`` in row-major order of the group."""
+    return _collect(mesh, parts, axes, streams,
+                    lambda xs: torch.cat(xs, dim=dim))
 
 
 def _join(mesh, parts: dict, streams: bool) -> dict:
@@ -618,6 +652,24 @@ def _join(mesh, parts: dict, streams: bool) -> dict:
             cur.wait_stream(s)
             t.record_stream(cur)
     return parts
+
+
+def _ep_shardmap_parts(cfg: ModelConfig, mesh, ins: dict, cap: int,
+                       streams: bool = True) -> dict:
+    """The shard-map dispatch's body a position: ``ins[idx]`` holds the
+    position's ``(x_loc, router, wi_loc, wo_loc)`` (its data shard's
+    tokens, the router, its experts' weights), on its device.  Returns
+    each position's ``(n_loc, d)`` output, summed over ``"model"``."""
+    e_loc = cfg.n_experts // mesh.shape["model"]
+    parts = {}
+    for idx in mesh.positions():
+        m = _coord(mesh, idx, ("model",))
+        with _on(mesh, idx, streams) as s:
+            _keep(s, ins[idx])
+            x_loc = ins[idx][0]
+            parts[idx] = (_ep_local_compute(cfg, *ins[idx], e_loc, m, cap)
+                          if x_loc.shape[0] else torch.zeros_like(x_loc))
+    return _psum(mesh, parts, ("model",), streams)
 
 
 def _moe_ep_shardmap(cfg: ModelConfig, p: Params, x2: torch.Tensor, mesh,
@@ -645,24 +697,65 @@ def _moe_ep_shardmap(cfg: ModelConfig, p: Params, x2: torch.Tensor, mesh,
     n = x2.shape[0]
     dp_size = int(np.prod([mesh.shape[a] for a in dp_axes]))
     n_loc = n // dp_size
-    cap = _ep_capacity(cfg, n_loc)
-    parts = {}
+    ins = {}
     for idx in mesh.positions():
-        dev = mesh.device(idx)
         i = _coord(mesh, idx, dp_axes)
         m = _coord(mesh, idx, ("model",))
         experts = (slice(m * e_loc, (m + 1) * e_loc),)
-        ins = _locals(dev, (x2, (slice(i * n_loc, (i + 1) * n_loc),)),
-                      (p["router"], ()), (p["wi"], experts),
-                      (p["wo"], experts))
-        with _on(mesh, idx, streams) as s:
-            _keep(s, ins)
-            parts[idx] = _ep_local_compute(cfg, *ins, e_loc, m, cap)
-    y = _join(mesh, _psum(mesh, parts, ("model",), streams), streams)
+        ins[idx] = _locals(mesh.device(idx),
+                           (x2, (slice(i * n_loc, (i + 1) * n_loc),)),
+                           (p["router"], ()), (p["wi"], experts),
+                           (p["wo"], experts))
+    y = _join(mesh, _ep_shardmap_parts(cfg, mesh, ins,
+                                       _ep_capacity(cfg, n_loc), streams),
+              streams)
     rows = {}
     for idx in mesh.positions():            # out_specs P(dp, None)
         rows.setdefault(_coord(mesh, idx, dp_axes), y[idx])
     return torch.cat([rows[i].to(x2.device) for i in range(dp_size)])
+
+
+def _ep_stationary_parts(cfg: ModelConfig, mesh, ins: dict, n: int,
+                         dtype: torch.dtype, streams: bool = True) -> dict:
+    """The weights-stationary dispatch's body: ``ins[idx]`` holds the
+    position's ``(x_sl, wi_loc, wo_loc, router_sl)`` (every token's
+    feature slice of its data coordinate, its experts' weights cut on
+    that coordinate, the router's rows), on its device.  Returns each
+    position's ``(n, d)`` output, summed over ``("model", "data")``."""
+    tp = mesh.shape["model"]
+    data_size = mesh.shape.get("data", 1)
+    e_loc = cfg.n_experts // tp
+    f_loc = cfg.d_expert // data_size
+    cap = _ep_capacity(cfg, n)
+    pos = mesh.positions()
+    coords = {idx: (_coord(mesh, idx, ("model",)),
+                    _coord(mesh, idx, ("data",))) for idx in pos}
+    part = {}
+    for idx in pos:                          # routing from feature slices
+        x_sl, _, _, router_sl = ins[idx]
+        with _on(mesh, idx, streams) as s:
+            _keep(s, ins[idx])
+            part[idx] = x_sl.float() @ router_sl
+    logits = _psum(mesh, part, ("data",), streams)
+    maps = {}
+    for idx in pos:                          # d-partial first GEMM
+        m, di = coords[idx]
+        with _on(mesh, idx, streams):
+            w, top = _router_weights(cfg, logits[idx])
+            maps[idx] = _ep_dispatch(cfg, w, top, m, e_loc, n, cap)
+            part[idx] = einsum("ecd,edf->ecf",
+                               _ep_gather(ins[idx][0], maps[idx][0], n),
+                               ins[idx][1])
+    hgate = _psum(mesh, part, ("data",), streams)
+    for idx in pos:                          # f-partial second GEMM
+        m, di = coords[idx]
+        with _on(mesh, idx, streams):
+            hmid = _swiglu(hgate[idx], dtype)
+            out = einsum("ecf,efd->ecd",
+                         hmid[:, :, di * f_loc:(di + 1) * f_loc], ins[idx][2])
+            part[idx] = _ep_combine(out, *maps[idx], n, dtype)
+    # NOT over "pod": pod replicas compute identical partials
+    return _psum(mesh, part, ("model", "data"), streams)
 
 
 def _moe_ep_stationary(cfg: ModelConfig, p: Params, x2: torch.Tensor, mesh,
@@ -678,50 +771,24 @@ def _moe_ep_stationary(cfg: ModelConfig, p: Params, x2: torch.Tensor, mesh,
     caller's stream."""
     tp = mesh.shape["model"]
     data_size = mesh.shape.get("data", 1)
-    e = cfg.n_experts
-    e_loc = e // tp
+    e_loc = cfg.n_experts // tp
     n, d = x2.shape
     d_loc = d // data_size
     f_loc = cfg.d_expert // data_size
-    cap = _ep_capacity(cfg, n)
-    pos = mesh.positions()
-    coords = {idx: (_coord(mesh, idx, ("model",)),
-                    _coord(mesh, idx, ("data",))) for idx in pos}
-    x_sl, wi_loc, wo_loc, part = {}, {}, {}, {}
-    for idx in pos:                          # routing from feature slices
-        m, di = coords[idx]
+    ins = {}
+    for idx in mesh.positions():
+        m = _coord(mesh, idx, ("model",))
+        di = _coord(mesh, idx, ("data",))
         feat = slice(di * d_loc, (di + 1) * d_loc)
         experts = slice(m * e_loc, (m + 1) * e_loc)
-        ins = _locals(mesh.device(idx), (x2, (slice(None), feat)),
-                      (p["wi"], (experts, feat)),
-                      (p["wo"], (experts, slice(di * f_loc,
-                                                (di + 1) * f_loc))),
-                      (p["router"], (feat,)))
-        x_sl[idx], wi_loc[idx], wo_loc[idx], router_sl = ins
-        with _on(mesh, idx, streams) as s:
-            _keep(s, ins)
-            part[idx] = x_sl[idx].float() @ router_sl
-    logits = _psum(mesh, part, ("data",), streams)
-    maps = {}
-    for idx in pos:                          # d-partial first GEMM
-        m, di = coords[idx]
-        with _on(mesh, idx, streams):
-            w, top = _router_weights(cfg, logits[idx])
-            maps[idx] = _ep_dispatch(cfg, w, top, m, e_loc, n, cap)
-            part[idx] = einsum("ecd,edf->ecf",
-                               _ep_gather(x_sl[idx], maps[idx][0], n),
-                               wi_loc[idx])
-    hgate = _psum(mesh, part, ("data",), streams)
-    for idx in pos:                          # f-partial second GEMM
-        m, di = coords[idx]
-        with _on(mesh, idx, streams):
-            hmid = _swiglu(hgate[idx], x2.dtype)
-            out = einsum("ecf,efd->ecd",
-                         hmid[:, :, di * f_loc:(di + 1) * f_loc], wo_loc[idx])
-            part[idx] = _ep_combine(out, *maps[idx], n, x2.dtype)
-    # NOT over "pod": pod replicas compute identical partials
-    y = _join(mesh, _psum(mesh, part, ("model", "data"), streams), streams)
-    return y[pos[0]].to(x2.device)           # out_specs P(None, None)
+        ins[idx] = _locals(mesh.device(idx), (x2, (slice(None), feat)),
+                           (p["wi"], (experts, feat)),
+                           (p["wo"], (experts, slice(di * f_loc,
+                                                     (di + 1) * f_loc))),
+                           (p["router"], (feat,)))
+    y = _join(mesh, _ep_stationary_parts(cfg, mesh, ins, n, x2.dtype,
+                                         streams), streams)
+    return y[mesh.positions()[0]].to(x2.device)  # out_specs P(None, None)
 
 
 def moe(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -740,13 +807,12 @@ def moe(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     chooses: :func:`_moe_ep_stationary` for n ≤ 2,048 tokens on a mesh
     with ``"data"`` dividing both ``d_expert`` and ``d_model``, else
     :func:`_moe_ep_shardmap` when the data-parallel size divides n, else
-    the single-device path below.  The EP paths' capacity is per expert
+    the single-device path (:func:`_moe_single`).  The EP paths' capacity is per expert
     and data shard (:func:`_ep_capacity`), so they drop other tokens
     than this path does.
     """
     b, l, d = x.shape
     n = b * l
-    k = cfg.moe_top_k
     e = cfg.n_experts
     x2 = x.reshape(n, d)
 
@@ -770,7 +836,14 @@ def moe(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
             if cfg.n_shared_experts:
                 y2 = y2 + mlp(cfg, p["shared"], x2)
             return y2.reshape(b, l, d)
+    return _moe_single(cfg, p, x2).reshape(b, l, d)
 
+
+def _moe_single(cfg: ModelConfig, p: Params, x2: torch.Tensor) -> torch.Tensor:
+    """:func:`moe`'s single-device path on ``(n, d)`` tokens."""
+    n, d = x2.shape
+    k = cfg.moe_top_k
+    e = cfg.n_experts
     logits = x2.float() @ p["router"]
     w, idx = _router_weights(cfg, logits)         # (n, k)
 
@@ -783,23 +856,23 @@ def moe(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     se = flat_e[order]
     sw = flat_w[order]
     tok = order // k
-    pos = torch.arange(n * k, device=x.device) - torch.searchsorted(
+    pos = torch.arange(n * k, device=x2.device) - torch.searchsorted(
         se, se, side="left")
     keep = pos < cap
     slot = torch.where(keep, pos, torch.full_like(pos, cap_pad - 1))
-    gathered = x2[tok] * keep[:, None].to(x.dtype)
-    buf = torch.zeros((e, cap_pad, d), dtype=x.dtype, device=x.device)
+    gathered = x2[tok] * keep[:, None].to(x2.dtype)
+    buf = torch.zeros((e, cap_pad, d), dtype=x2.dtype, device=x2.device)
     buf.index_put_((se, slot), gathered, accumulate=True)
     hgate = einsum("ecd,edf->ecf", buf, p["wi"])
     g, up = hgate.chunk(2, dim=-1)
-    hmid = F.silu(g.float()).to(x.dtype) * up
+    hmid = F.silu(g.float()).to(x2.dtype) * up
     out_buf = einsum("ecf,efd->ecd", hmid, p["wo"])
-    vals = out_buf[se, slot] * (sw * keep)[:, None].to(x.dtype)
-    y2 = torch.zeros((n, d), dtype=x.dtype, device=x.device)
-    y2.index_add_(0, tok, vals.to(x.dtype))
+    vals = out_buf[se, slot] * (sw * keep)[:, None].to(x2.dtype)
+    y2 = torch.zeros((n, d), dtype=x2.dtype, device=x2.device)
+    y2.index_add_(0, tok, vals.to(x2.dtype))
     if cfg.n_shared_experts:
         y2 = y2 + mlp(cfg, p["shared"], x2)
-    return y2.reshape(b, l, d)
+    return y2
 
 
 # ----------------------------------------------------------- Mamba2 (SSD)

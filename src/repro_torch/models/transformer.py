@@ -27,7 +27,9 @@ its cache in place and is never recomputed).
 """
 from __future__ import annotations
 
-from typing import Any
+import contextlib
+import threading
+from typing import Any, Iterator
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -51,10 +53,31 @@ def n_stacked(tree: Params) -> int:
     return n_stacked(leaf) if isinstance(leaf, dict) else leaf.shape[0]
 
 
+_kept = threading.local()
+
+
+@contextlib.contextmanager
+def kept_for_recompute() -> Iterator[list]:
+    """For the length of a ``with``, list the tensor arguments of every
+    recomputed call: what a checkpoint keeps for its backward pass
+    (autograd's ``saved_tensors_hooks`` do not see them).  The dry run's
+    memory estimate reads it."""
+    prev = getattr(_kept, "tensors", None)
+    _kept.tensors = []
+    try:
+        yield _kept.tensors
+    finally:
+        _kept.tensors = prev
+
+
 def _recomputed(fn, *args, **kwargs):
     """``fn(*args, **kwargs)``, its activations recomputed in the backward
     pass (a non-reentrant checkpoint) while autograd records."""
     if torch.is_grad_enabled():
+        kept = getattr(_kept, "tensors", None)
+        if kept is not None:
+            kept.extend(a for a in (*args, *kwargs.values())
+                        if isinstance(a, torch.Tensor))
         return checkpoint(fn, *args, use_reentrant=False, **kwargs)
     return fn(*args, **kwargs)
 

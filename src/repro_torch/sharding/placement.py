@@ -15,6 +15,9 @@ The port's counterpart of what ``jax.sharding.NamedSharding``,
   ``.to(device)``, as ``ShardedPlan.model_slice`` does.
 * :func:`device_put` places a tree, :func:`gather` puts a leaf back
   together as one tensor.
+* :func:`read_region` and :func:`write_region` read and write a global
+  index range of a placed leaf, block by block: the sharded train step's
+  gathers (:mod:`repro_torch.train.sharded_step`) and its optimizer.
 """
 from __future__ import annotations
 
@@ -167,3 +170,106 @@ def gather(leaf: PlacedTensor, device=None) -> torch.Tensor:
 def is_placed(tree: Any) -> bool:
     """Whether any leaf of ``tree`` is placed on a mesh."""
     return any(isinstance(x, PlacedTensor) for x in tree_leaves(tree))
+
+
+def holders(leaf: PlacedTensor) -> dict[tuple, tuple]:
+    """Each block of the leaf and the first position (row-major) that
+    holds it."""
+    out: dict[tuple, tuple] = {}
+    for idx in leaf.sharding.mesh.positions():
+        out.setdefault(leaf.sharding.block(idx, leaf.ndim), idx)
+    return out
+
+
+def _full(sl, shape) -> tuple[slice, ...]:
+    """``sl`` (slices or ints, one a leading dimension) as one slice a
+    dimension, and the dimensions an int drops."""
+    sl = tuple(sl) + (slice(None),) * (len(shape) - len(sl))
+    out, drop = [], []
+    for k, (s, n) in enumerate(zip(sl, shape)):
+        if isinstance(s, int):
+            out.append(slice(s, s + 1))
+            drop.append(k)
+        else:
+            lo, hi, step = s.indices(n)
+            if step != 1:
+                raise ValueError(f"step {step} in a region")
+            out.append(slice(lo, hi))
+    return tuple(out), drop
+
+
+def read_region(leaf: PlacedTensor, sl, device, by_block: dict | None = None
+                ) -> torch.Tensor:
+    """The leaf's global index range ``sl`` (slices or ints, one a leading
+    dimension) as one tensor on ``device``, cut from the blocks that
+    cover it, each from ``by_block[block]`` (default: its first holder's
+    shard) and concatenated.  Differentiable when the blocks are."""
+    sl, drop = _full(sl, leaf.shape)
+    local = leaf.sharding.shard_shape(leaf.shape)
+    if by_block is None:
+        by_block = {b: leaf.shards[i] for b, i in holders(leaf).items()}
+
+    def build(k: int, block: tuple, cut: tuple) -> torch.Tensor:
+        if k == len(sl):
+            t = by_block[block][cut]
+            return t if t.device == device else t.to(device)
+        n, s = local[k], sl[k]
+        pieces = [build(k + 1, block + (j,),
+                        cut + (slice(max(s.start, j * n) - j * n,
+                                     min(s.stop, (j + 1) * n) - j * n),))
+                  for j in range(s.start // n, -(-s.stop // n))]
+        return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=k)
+
+    out = build(0, (), ())
+    for k in reversed(drop):
+        out = out.squeeze(k)
+    return out
+
+
+def write_region(leaf: PlacedTensor, sl, value: torch.Tensor,
+                 written: set) -> None:
+    """Copy ``value`` (the global range ``sl`` of the leaf, as
+    :func:`read_region` gives it) into every position's shard that holds
+    part of it.  Positions whose shards are views of one copy are written
+    once: ``written`` keeps what this update has written."""
+    sl, drop = _full(sl, leaf.shape)
+    for k in drop:
+        value = value.unsqueeze(k)
+    for idx in leaf.sharding.mesh.positions():
+        own = leaf.sharding.slices(leaf.shape, idx)
+        lo = [max(a.start, b.start) for a, b in zip(own, sl)]
+        hi = [min(a.stop, b.stop) for a, b in zip(own, sl)]
+        if any(a >= b for a, b in zip(lo, hi)):
+            continue
+        target = leaf.shards[idx][tuple(
+            slice(a - o.start, b - o.start) for a, b, o in zip(lo, hi, own))]
+        key = (target.device, target.data_ptr(), tuple(target.shape),
+               target.stride())
+        if key in written:
+            continue
+        written.add(key)
+        target.copy_(value[tuple(slice(a - s.start, b - s.start)
+                                 for a, b, s in zip(lo, hi, sl))])
+
+
+def from_blocks(like: PlacedTensor, values: dict, dtype=None) -> PlacedTensor:
+    """A leaf placed as ``like`` whose block ``b`` is ``values[b]``: every
+    holder of a block gets that tensor, copied once to each other
+    device."""
+    on: dict = {}
+    shards = {}
+    for idx in like.sharding.mesh.positions():
+        b = like.sharding.block(idx, like.ndim)
+        dev = like.sharding.mesh.device(idx)
+        if (b, dev) not in on:
+            v = values[b]
+            on[b, dev] = v if v.device == dev else v.to(dev)
+        shards[idx] = on[b, dev]
+    return PlacedTensor(like.shape, dtype or next(iter(values.values())).dtype,
+                        like.sharding, shards)
+
+
+def first_device(leaf: PlacedTensor) -> torch.device:
+    """The device of the mesh's first position."""
+    mesh = leaf.sharding.mesh
+    return mesh.device(mesh.positions()[0])

@@ -12,6 +12,11 @@ the int8 codes equal the JAX function's.
 one host thread (the reference's single controller, no
 ``torch.distributed``), so here it takes the list of per-position
 gradients and returns each position's reduced copy.
+
+On gradients placed on a mesh (the sharded train step's) the per-tensor
+scale is the maximum over the leaf's blocks, as XLA computes the JAX
+function's maximum over the whole partitioned tensor; the error feedback
+is written into the placed state in place.
 """
 from __future__ import annotations
 
@@ -19,6 +24,8 @@ from typing import Sequence
 
 import torch
 
+from ..sharding.placement import (PlacedTensor, first_device, from_blocks,
+                                  holders, read_region, write_region)
 from ..tree import tree_leaves, tree_unflatten
 
 
@@ -44,10 +51,33 @@ def make_error_feedback_compressor():
                                    device=p.device)
                        for p in tree_leaves(params)]}
 
+    def placed(g: PlacedTensor, e: PlacedTensor, written: set
+               ) -> PlacedTensor:
+        blocks = {b: (g.sharding.slices(g.shape, i), g.sharding.mesh.device(i))
+                  for b, i in holders(g).items()}
+        g32 = {b: read_region(g, sl, dev).float() + read_region(e, sl, dev)
+               for b, (sl, dev) in blocks.items()}
+        dev0 = first_device(g)
+        scale = torch.clamp(torch.stack([x.abs().max().to(dev0)
+                                         for x in g32.values()]).max(),
+                            min=1e-12) / 127.0
+        deq = {}
+        for b, x in g32.items():
+            sc = scale.to(x.device)
+            deq[b] = dequantize_int8(torch.clamp(torch.round(x / sc), -127,
+                                                 127).to(torch.int8), sc)
+            write_region(e, blocks[b][0], x - deq[b], written)
+        return from_blocks(g, deq)
+
     def compress(grads, opt_state):
         efs = opt_state["compression"]["ef"]
         out, new_ef = [], []
+        written: set = set()
         for g, e in zip(tree_leaves(grads), efs):
+            if isinstance(g, PlacedTensor):
+                out.append(placed(g, e, written))
+                new_ef.append(e)
+                continue
             g32 = g.float() + e
             q, scale = quantize_int8(g32)
             deq = dequantize_int8(q, scale)

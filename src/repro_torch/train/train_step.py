@@ -7,6 +7,12 @@ this one runs a backward pass a microbatch and adds ``g / ga`` into a
 ``cfg.grad_accum_dtype`` accumulator, then takes the mean of the
 microbatches' metrics.  The step runs eagerly on the parameters' device
 (the first leaf's); a batch of numpy arrays is copied there.
+
+A tree placed on a mesh (``PlacedTensor`` leaves, as an elastic restore
+with ``shardings`` gives it) runs over the mesh's positions
+(:mod:`.sharded_step`), as the JAX step runs under ``jit`` with the
+parameters' shardings: the batch is split over the data positions, and
+the step returns the placed tree, its shardings unchanged.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ import torch
 from ..models import transformer as T
 from ..models.config import ModelConfig
 from ..sharding.placement import is_placed
+from . import sharded_step
 from ..tree import tree_leaves, tree_unflatten
 from .optimizer import Optimizer, global_norm
 
@@ -47,7 +54,11 @@ def _grads(cfg: ModelConfig, leaves: list, params: Any, batch: dict):
 
 
 def grads_and_metrics(cfg: ModelConfig, params: Any, batch: dict):
-    """Accumulated float32 grads + mean metrics over the microbatches."""
+    """Accumulated float32 grads + mean metrics over the microbatches;
+    on a placed tree, gradients placed as the parameters
+    (:func:`.sharded_step.grads_and_metrics`)."""
+    if is_placed(params):
+        return sharded_step.grads_and_metrics(cfg, params, batch)
     ga = max(cfg.grad_accum, 1)
     leaves = tree_leaves(params)
     batch = _on(batch, leaves[0].device)
@@ -79,17 +90,16 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer,
     optimizer.  The optimizer updates ``params`` and ``opt_state`` in
     place (the JAX step's donated buffers) and the step returns them.
 
-    The step takes plain tensors.  A tree placed on a mesh (an elastic
-    restore with ``shardings``) raises ``NotImplementedError``: the
-    sharded train step is ROADMAP item 14g, and gathering the tree here
-    would hide that it is missing.
+    On parameters and state placed on a mesh the step runs over its
+    positions and updates the placed shards in place.  The ``ssm``,
+    ``hybrid`` and ``encdec`` families run so only on a 1 x 1 mesh; wider
+    ones raise ``NotImplementedError`` (ROADMAP item 14h).
     """
 
     def step(params, opt_state, batch, step_idx):
-        if is_placed((params, opt_state)):
-            raise NotImplementedError(
-                "the train step takes plain tensors; a tree placed on a "
-                "mesh needs the sharded train step (ROADMAP item 14g)")
+        if is_placed(opt_state) and not is_placed(params):
+            raise ValueError("the optimizer state is placed on a mesh and "
+                             "the parameters are not")
         grads, metrics = grads_and_metrics(cfg, params, batch)
         if compress is not None:
             grads, opt_state = compress(grads, opt_state)

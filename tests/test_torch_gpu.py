@@ -33,8 +33,11 @@ substrate on a mesh: a parameter tree placed on a 2 x 2 grid of the card
 by the rule shardings, the elastic restore flow there (float32 and
 bfloat16, bit for bit), and both expert-parallel MoE branches on the
 grid, each position on its own stream, against the card's single-device
-``moe`` and the CPU's expert-parallel one.  The file imports nothing of
-JAX, so it runs where only the port is installed.
+``moe`` and the CPU's expert-parallel one.  The sharded train step on that
+grid (dense with remat and CE chunks, MLA with MTP and Adafactor, both
+expert-parallel dispatches, the VLM prefix), repeated, against the card's
+one-device step and the CPU grid's sharded step.  The file imports
+nothing of JAX, so it runs where only the port is installed.
 """
 import contextlib
 import sys
@@ -1392,3 +1395,85 @@ def test_moe_ep_branches_on_card(cuda, no_tf32, arch, shape, branch):
         v, torch.Tensor) else _to(v, cuda) for k, v in p.items()},
         x2.to(cuda), _card_grid(cuda))
     torch.testing.assert_close(par, seq, rtol=0, atol=1e-5)
+
+
+SHARDED_REPEATS = 3
+#: (arch, overrides, rows, tokens a row): drop-free for the MoE models (8
+#: tokens: the stationary capacity, 8, cannot be passed; capacity_factor
+#: 4: the shard-map capacity equals a shard's tokens)
+SHARDED_ON_CARD = {
+    "qwen3-0.6b": ("qwen3-0.6b", {"remat": True, "ce_chunk": 16}, 4, 64),
+    "deepseek-v3-671b": ("deepseek-v3-671b", {"remat": True}, 2, 4),
+    "qwen3-moe-shardmap": ("qwen3-moe-30b-a3b", {"capacity_factor": 4.0},
+                           4, 520),
+    "internvl2-76b": ("internvl2-76b", {}, 4, 16),
+}
+
+
+@pytest.mark.parametrize("name", list(SHARDED_ON_CARD))
+def test_sharded_step_on_card_grid(cuda, no_tf32, name):
+    """The sharded train step on the 2 x 2 card grid, each position on its
+    own stream, repeated: the loss within 1e-5 relative and the gathered
+    gradients within ``rtol=1e-4, atol=1e-6`` of the card's one-device
+    step and of the CPU grid's sharded step; a step through
+    ``make_train_step`` keeps the shardings and its loss agrees with the
+    one-device step's."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import rules as R
+    from repro_torch.sharding.placement import (NamedSharding, device_put,
+                                                gather)
+    from repro_torch.train import make_optimizer, make_train_step
+    from repro_torch.train.train_step import grads_and_metrics
+    from repro_torch.tree import tree_leaves, tree_map_with_path
+
+    arch, over, rows, seq = SHARDED_ON_CARD[name]
+    cfg = get_config(arch, reduced=True, **over)
+    params = T.init_model(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    tok = rng.integers(0, cfg.vocab, (rows, seq + 1)).astype(np.int32)
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    if cfg.family == "vlm":
+        batch["patches"] = rng.normal(
+            size=(rows, cfg.frontend_len, cfg.d_model)).astype(np.float32)
+    opt = make_optimizer(cfg.optimizer)
+
+    def placed(dev, mesh):
+        shapes = T.init_model(cfg, None)
+        pspecs = R.param_specs(cfg, shapes, mesh)
+
+        def named(specs):
+            return tree_map_with_path(lambda _, s: NamedSharding(mesh, s),
+                                      specs, is_leaf=R.is_spec)
+        p = _to(params, dev)
+        return (device_put(p, named(pspecs)),
+                device_put(opt.init(p), named(D.opt_state_specs(
+                    cfg.optimizer, shapes, pspecs, mesh))))
+
+    def close(got, want):
+        assert float(got[1]["loss"]) == pytest.approx(
+            float(want[1]["loss"]), rel=1e-5)
+        for a, b in zip(tree_leaves(got[0]), tree_leaves(want[0])):
+            a = gather(a).cpu() if not isinstance(a, torch.Tensor) else a
+            b = gather(b).cpu() if not isinstance(b, torch.Tensor) else b
+            torch.testing.assert_close(a.cpu(), b.cpu(), rtol=1e-4,
+                                       atol=1e-6)
+
+    one = grads_and_metrics(cfg, _to(params, cuda), batch)
+    grid = _card_grid(cuda)
+    pl, state = placed(cuda, grid)
+    runs = [grads_and_metrics(cfg, pl, batch)
+            for _ in range(SHARDED_REPEATS)]
+    host = grads_and_metrics(cfg, placed("cpu", make_host_mesh(
+        2, devices=["cpu"] * 4))[0], batch)
+    for r in runs:
+        close(r, one)
+    close(runs[0], host)
+    before = [x.sharding for x in tree_leaves((pl, state))]
+    p2, s2, m = make_train_step(cfg, opt)(pl, state, batch, np.int32(0))
+    assert [x.sharding for x in tree_leaves((p2, s2))] == before
+    want = make_train_step(cfg, opt)(_to(params, cuda), opt.init(
+        _to(params, cuda)), batch, np.int32(0))[2]
+    assert float(m["loss"]) == pytest.approx(float(want["loss"]), rel=1e-5)

@@ -110,6 +110,17 @@ print(json.dumps(out))
 '''
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for these small tensors: on a loaded machine
+    (the suite's other workers) a parallel region waits on its slowest
+    thread, which can stretch each small op a hundredfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def jax_shapes():
     env = dict(os.environ, JAX_PLATFORMS="cpu",

@@ -61,6 +61,17 @@ def vocab_slice(x, cfg):
     return np.asarray(x, dtype=np.float32)[..., :cfg.vocab]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for these small tensors: on a loaded machine
+    (the suite's other workers) a parallel region waits on its slowest
+    thread, which can stretch each small op a hundredfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def built():
     """name (and overrides) → (JAX cfg, port cfg, JAX params, port params).

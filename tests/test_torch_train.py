@@ -75,6 +75,17 @@ def numpy_tree(t):
     return jax.tree.map(np.asarray, t)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for these small tensors: on a loaded machine
+    (the suite's other workers) a parallel region waits on its slowest
+    thread, which can stretch each small op a hundredfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def built():
     """name (and overrides) → (JAX cfg, port cfg, JAX params, port
