@@ -206,7 +206,13 @@ printed as it runs; any failure exits non-zero:
    weights-stationary dispatch) and 4 x 4,096 (the shard-map dispatch,
    timed), each dispatch's dropped assignments counted (where any drop,
    the reference is the sharded step with its positions one after
-   another);
+   another); (d) the same, timed, for the ssm, hybrid and encdec
+   families at their published widths on the same grid and ingest:
+   mamba2-780m whole (48 layers, ``remat``) at 2 x 2,048 tokens,
+   zamba2-7b with 12 of its 81 layers (two invocations of the shared
+   attention block, ``grad_accum`` 2) at 4 x 2,048, and
+   whisper-large-v3 with 8 of its 32 encoder and 8 of its 32 decoder
+   layers at 4 x 448 tokens and 1,500 frames a row from seed 0;
 15. the end-to-end line, one ``{"kernels": [...]}`` line, the card line,
    and the result line.
 """
@@ -340,6 +346,19 @@ SHARDED_FLOP_CELLS = ("qwen3-0.6b", "qwen3-moe-30b-a3b")
 SHARDED_MOE_LAYERS = 2
 SHARDED_MOE_BATCHES = ((4, 4, "stationary"), (4, 4096, "shardmap"))
 SHARDED_TIMED_STEPS = 2
+# (d) the ssm, hybrid and encdec families at their published widths on
+# the same grid and ingest: (arch, layers kept (0: all; encdec: each
+# stack), rows, tokens a row, overrides); mamba2-780m whole, its 48
+# layers under remat, 2 x 2,048 tokens (8 SSD chunks of 256 a row);
+# zamba2-7b, 12 of its 81 layers (the shared attention block after
+# layers 5 and 11), 4 x 2,048 tokens in its 2 microbatches; whisper-large-v3,
+# 8 of its 32 encoder and 8 of its 32 decoder layers, 4 x 448 tokens and
+# 1,500 frames a row drawn from seed 0 (the conv frontend is a stub)
+SHARDED_FAMILY_CASES = (
+    ("mamba2-780m", 0, 2, 2048, {"remat": True}),
+    ("zamba2-7b", 12, 4, 2048, {}),
+    ("whisper-large-v3", 8, 4, 448, {}),
+)
 
 # card peaks (H100 SXM data sheet): HBM bytes/s, the 32-bit non-tensor
 # rate, which bounds the kernels' integer bit operations and K6's float32
@@ -3625,13 +3644,14 @@ def leaf_ratios(got, want, rtol: float, atol: float) -> list:
 
 def sharded_case(what: str, cfg, pipe, grid, dev, *, timed: bool,
                  drops_shards: int | None = None,
-                 stationary: bool = False) -> dict:
+                 stationary: bool = False, frames=None) -> dict:
     """One model on the grid: the one-device step's gradients, then the
     sharded step's (held to them), the updates from the same gradients
     (held), a second step through both step functions (losses held), the
     shardings kept; then, with the one-device copies freed, timed steps
     (CUDA events), the card's busy share and peak memory, beside the dry
-    run's estimate for this mesh and shape."""
+    run's estimate for this mesh and shape.  ``frames``: an
+    encoder-decoder's two batches' frames, added to the pipeline's."""
     from repro_torch.launch import dryrun as D
     from repro_torch.launch.cells import Cell
     from repro_torch.models.config import ShapeSpec
@@ -3645,6 +3665,8 @@ def sharded_case(what: str, cfg, pipe, grid, dev, *, timed: bool,
 
     out: dict = {}
     b0, b1 = pipe.batch_at(0), pipe.batch_at(1)
+    if frames is not None:
+        b0, b1 = {**b0, "frames": frames[0]}, {**b1, "frames": frames[1]}
     rows, seq = b0["tokens"].shape
     opt = make_optimizer(cfg.optimizer)
     params = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0))
@@ -3908,9 +3930,66 @@ def sharded_step_phase(dev) -> dict:
         del pipe
     check(not any(out["step_launches"].values()),
           f"(b) the sharded steps launched {out['step_launches']}")
+    # (d) the ssm, hybrid and encdec families at published widths
+    out["d"], launches, out["d_s"] = sharded_families(grid, dev)
+    out["launches"].update(launches)
     out["phase_s"] = time.perf_counter() - t_phase
     say(f"phase 14 in {out['phase_s']:.1f} s")
     return out
+
+
+def sharded_families(grid, dev) -> tuple[dict, dict, float]:
+    """Phase 14(d): each of ``SHARDED_FAMILY_CASES`` through
+    :func:`sharded_case`, timed, on its byte ingest (K5, K6), whose
+    launches are counted and the steps' checked to be none.  Returns
+    (the cases' results, the ingests' launches, seconds)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_cli
+
+    out, launches = {}, {}
+    t_d = time.perf_counter()
+    for arch, layers, rows, seq, over in SHARDED_FAMILY_CASES:
+        cfg = get_config(arch).with_(**over)
+        if layers:
+            cfg = cfg.with_(n_layers=layers, **(
+                {"n_enc_layers": layers} if cfg.n_enc_layers else {}))
+        pipe, got = drive(f"(d) build_filtered_pipeline, bytes, {rows} x "
+                          f"{seq}", lambda: train_cli.build_filtered_pipeline(
+                              rows, seq, log=lambda _: None, ingest="bytes",
+                              device=str(dev)), {"K5", "K6"})
+        launches[f"d/{arch}"] = got
+        frames = None
+        if cfg.family == "encdec":
+            gen = torch.Generator(device=dev).manual_seed(0)
+            frames = [torch.randn((rows, cfg.frontend_len, cfg.d_model),
+                                  generator=gen, device=dev)
+                      for _ in range(2)]
+        reset_counts()
+        t = time.perf_counter()
+        r = sharded_case(f"(d) {arch}", cfg, pipe, grid, dev, timed=True,
+                         frames=frames)
+        r["s"] = time.perf_counter() - t
+        step_counts = counts()
+        check(not any(step_counts.values()),
+              f"(d) {arch}: the sharded steps launched {step_counts}")
+        out[arch] = r
+        full = get_config(arch)
+        depth = (f"{cfg.n_enc_layers} + {cfg.n_layers} of "
+                 f"{full.n_enc_layers} + {full.n_layers} layers"
+                 if cfg.n_enc_layers else
+                 f"{cfg.n_layers} of {full.n_layers} layers")
+        report_case(f"(d) {arch} ({depth}, {r['param_bytes'] / 1e9:.2f} GB "
+                    f"float32), {rows} x {seq} tokens"
+                    + (f", {cfg.frontend_len} frames a row" if frames
+                       else "")
+                    + (f", grad_accum {cfg.grad_accum}"
+                       if cfg.grad_accum > 1 else "")
+                    + (", remat" if cfg.remat else ""), r)
+        del pipe, frames
+        torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_d
+    say(f"(d) in {seconds:.1f} s")
+    return out, launches, seconds
 
 
 def report_case(what: str, r: dict) -> None:
@@ -4064,7 +4143,9 @@ def main() -> int:
         f"{min(sharded_lm['b']['step_ms']):.1f} ms "
         f"({sharded_lm['b']['tokens_per_s']:.1f} tokens/s), {MOE_ARCH} "
         f"({SHARDED_MOE_LAYERS} layers) "
-        f"{min(sharded_lm['c']['shardmap']['step_ms']):.1f} ms"
+        f"{min(sharded_lm['c']['shardmap']['step_ms']):.1f} ms, " + ", ".join(
+            f"{a} {min(r['step_ms']):.1f} ms ({r['tokens_per_s']:.1f} "
+            f"tokens/s)" for a, r in sharded_lm["d"].items())
         + f"; serve loop: sparse pub-sub p50 "
         f"{serving['sparse']['p50_ms']:.3f} / p99 "
         f"{serving['sparse']['p99_ms']:.3f} ms at "
@@ -4115,8 +4196,8 @@ def main() -> int:
             v[key] for v in train["cli_launches"].values())
         # phase 13: the LM substrate on a mesh (no filter kernel)
         row["lm_mesh_launches"] = mesh_lm["launches"][key]
-        # phase 14: the sharded step's byte ingest, (b)'s and (c)'s
-        # pipelines (K5, K6; the steps launch no kernel of the table)
+        # phase 14: the sharded step's byte ingest, (b)'s, (c)'s and
+        # (d)'s pipelines (K5, K6; the steps launch no kernel of the table)
         row["lm_sharded_launches"] = sum(
             v[key] for v in sharded_lm["launches"].values())
         row["mesh_positions"] = mesh["positions"]

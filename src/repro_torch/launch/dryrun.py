@@ -34,8 +34,14 @@ this driver:
    * ``model_flops`` and ``fits_h100_80g``: the position's bytes against
      :data:`H100_80G_BYTES`.
 
-There are no collective bytes: the port emits no HLO, and
-``launch/hlo_analysis.py`` has no counterpart.
+Not counted yet: the JAX dry run's ``collective_bytes``,
+``collective_breakdown`` and ``bytes_accessed``, which
+``launch/hlo_analysis.py`` reads from the HLO text XLA compiles (the
+port emits none).  The port writes its collectives out
+(:func:`~repro_torch.models.layers._psum`, ``_pmax``, ``_all_gather``),
+so their bytes a position and a step can be counted where they run, by
+``hlo_analysis.py``'s ring formulas (all-reduce ``2·b·(g-1)/g``,
+all-gather ``b·(g-1)/g``), and held against XLA's on the mini cells.
 
 Usage::
 

@@ -145,16 +145,24 @@ class FilterMesh:
             s = streams[flat] = torch.cuda.Stream(dev)
         return s
 
+    def current_streams(self) -> dict[int, Any]:
+        """The stream :meth:`stream` gives the calling thread at each
+        position (by flat index): what :meth:`pinned_streams` pins."""
+        return {self._flat(idx): self.stream(idx) for idx in self.positions()}
+
     @contextlib.contextmanager
-    def pinned_streams(self) -> Iterator[None]:
+    def pinned_streams(self, streams: dict[int, Any] | None = None
+                       ) -> Iterator[None]:
         """For the length of a ``with``, every thread gets the calling
-        thread's stream of each position.  A train step pins them: autograd
-        runs the backward pass, and the recompute of a checkpointed layer,
-        in a thread of its own, and a position's recomputed activations
-        must come from the stream its backward ops run on, the forward's."""
+        thread's stream of each position (or those of ``streams``, a
+        :meth:`current_streams` taken earlier).  A train step pins them:
+        autograd runs the backward pass, and the recompute of a
+        checkpointed layer, in a thread of its own, and a position's
+        recomputed activations must come from the stream its backward ops
+        run on, the forward's."""
         prev = self._pinned
-        self._pinned = {self._flat(idx): self.stream(idx)
-                        for idx in self.positions()}
+        self._pinned = self.current_streams() if streams is None \
+            else streams
         try:
             yield
         finally:

@@ -971,13 +971,20 @@ def ssd_chunked(xh, dt, a_neg, b_in, c_in, chunk: int, init_state=None):
     return y, s
 
 
-def mamba2(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
-           cache: Params | None = None, cache_pos: int | None = None):
-    """Mamba2 block.  cache: {"conv_x": (B,K-1,di), "conv_bc": (B,K-1,2GN),
-    "ssd": (B,H,P,N)}, written in place."""
-    bsz, l, d = x.shape
-    di, g, ns, h = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
-    hp = cfg.ssm_headdim
+def _mamba2_mix(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
+                cache: Params | None = None, cache_pos: int | None = None,
+                groups: slice | None = None):
+    """Mamba2 up to its gated norm, over the heads ``p`` holds: the z/x,
+    B/C and dt projections, the causal convolutions, the SSD scan (or a
+    decode step's recurrence) and the skip.  ``p``'s per-head leaves
+    (``zx_proj``, ``dt_proj``, ``conv_x``, ``conv_b_x``, ``a_log``,
+    ``d_skip``, ``dt_bias``) may be a slice of whole heads (a
+    tensor-parallel position's); B and C are computed whole, and
+    ``groups`` picks the groups those heads read.  Returns ``(y (B, L,
+    d_inner of p) in x's dtype, z, (conv_x, conv_bc, ssd) states)``."""
+    bsz, l, _ = x.shape
+    h, hp, ns = p["a_log"].shape[-1], cfg.ssm_headdim, cfg.ssm_state
+    di = h * hp
     zx = einsum("bld,dit->blit", x, p["zx_proj"])
     z, xs_raw = zx[..., 0], zx[..., 1]
     bc_raw = torch.cat([matmul(x, p["b_proj"]), matmul(x, p["c_proj"])],
@@ -991,8 +998,11 @@ def mamba2(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
         None if cache is None else cache["conv_bc"])
     b_in, c_in = bc.chunk(2, dim=-1)
     xh = xs.reshape(bsz, l, h, hp)
-    b_in = b_in.reshape(bsz, l, g, ns)
-    c_in = c_in.reshape(bsz, l, g, ns)
+    b_in = b_in.reshape(bsz, l, cfg.ssm_groups, ns)
+    c_in = c_in.reshape(bsz, l, cfg.ssm_groups, ns)
+    if groups is not None:
+        b_in, c_in = b_in[:, :, groups], c_in[:, :, groups]
+    g = b_in.shape[2]
     dt = dt.float() + p["dt_bias"]
     dt = torch.logaddexp(dt, torch.zeros_like(dt))      # softplus
     a_neg = -torch.exp(p["a_log"])
@@ -1022,10 +1032,17 @@ def mamba2(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
             y = y[:, :l]
     y = y + xh[:, :l].to(y.dtype) * p["d_skip"][None, None, :, None]
     y = y.reshape(bsz, l, di).to(x.dtype)
+    return y, z, (new_conv_x, new_conv_bc, s_final)
+
+
+def mamba2(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
+           cache: Params | None = None, cache_pos: int | None = None):
+    """Mamba2 block.  cache: {"conv_x": (B,K-1,di), "conv_bc": (B,K-1,2GN),
+    "ssd": (B,H,P,N)}, written in place."""
+    y, z, states = _mamba2_mix(cfg, p, x, cache=cache, cache_pos=cache_pos)
     y = rms_norm_gated(y, z, p["gate_norm"], cfg.norm_eps)
     out = matmul(y, p["out_proj"])
     if cache is not None:
-        cache["conv_x"].copy_(new_conv_x)
-        cache["conv_bc"].copy_(new_conv_bc)
-        cache["ssd"].copy_(s_final)
+        for k, v in zip(("conv_x", "conv_bc", "ssd"), states):
+            cache[k].copy_(v)
     return out, cache

@@ -32,8 +32,9 @@ import threading
 from typing import Any, Iterator
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, noop_context_fn
 
+from ..sharding.ctx import _mesh, mesh_context
 from . import layers as L
 from .config import ModelConfig
 
@@ -72,14 +73,39 @@ def kept_for_recompute() -> Iterator[list]:
 
 def _recomputed(fn, *args, **kwargs):
     """``fn(*args, **kwargs)``, its activations recomputed in the backward
-    pass (a non-reentrant checkpoint) while autograd records."""
+    pass (a non-reentrant checkpoint) while autograd records.
+
+    The recompute runs under the mesh context and the positions' streams
+    its forward ran under (:func:`_as_recorded`): on a card autograd
+    recomputes in a thread of its own, where neither is active, and a
+    layer that reads the mesh (the MoE's expert-parallel dispatch) would
+    otherwise take another path there than in its forward."""
     if torch.is_grad_enabled():
         kept = getattr(_kept, "tensors", None)
         if kept is not None:
             kept.extend(a for a in (*args, *kwargs.values())
                         if isinstance(a, torch.Tensor))
-        return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=_as_recorded(), **kwargs)
     return fn(*args, **kwargs)
+
+
+def _as_recorded():
+    """A checkpoint's ``context_fn``: the forward as it is, the recompute
+    under the calling thread's active mesh (:func:`~repro_torch.sharding.
+    ctx.mesh_context`) with the mesh's streams pinned as this thread sees
+    them now."""
+    mesh = _mesh()
+    if mesh is None:
+        return noop_context_fn
+    streams = mesh.current_streams()
+
+    @contextlib.contextmanager
+    def recompute():
+        with mesh_context(mesh), mesh.pinned_streams(streams):
+            yield
+
+    return lambda: (contextlib.nullcontext(), recompute())
 
 
 def _remat(cfg: ModelConfig, caches, fn, *args, **kwargs):

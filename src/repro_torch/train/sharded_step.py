@@ -4,28 +4,32 @@ Counterpart of what ``jax.jit(step, in_shardings=(psh, osh, bsh, repl),
 out_shardings=(psh, osh, None))`` makes of ``src/repro/train/
 train_step.py`` on a mesh (``src/repro/launch/dryrun.py:90-103``): XLA
 partitions the JAX step by the parameters' specs.  The port has no
-partitioner, so this module writes the partitioned step out, for the
-decoder families (dense, moe, vlm), and drives every position from the
-calling thread, each on a CUDA stream of its own (off the card one after
-another), as the expert-parallel MoE does (:mod:`repro_torch.models.
-layers`).
+partitioner, so this module writes the partitioned step out, for every
+family (dense, moe, vlm, ssm, hybrid, encdec), and drives every position
+from the calling thread, each on a CUDA stream of its own (off the card
+one after another), as the expert-parallel MoE does
+(:mod:`repro_torch.models.layers`).
 
 Storage follows the specs; compute follows the layer kind:
 
 * each position computes its rows of the batch (``"data"``, and
-  ``"pod"`` where the mesh has it) and its ``"model"`` slice of every
-  layer: the heads of attention and MLA (with the KV heads its query
-  heads read), ``d_ff`` of the MLP, the vocabulary of the embedding and
-  the unembedding, the experts through the expert-parallel dispatches,
-  the output columns of ``patch_proj``; a layer whose dimension does not
-  divide the model axis computes whole at every position, unsummed;
+  ``"pod"`` where the mesh has it; an encoder-decoder's ``frames`` too)
+  and its ``"model"`` slice of every layer: the heads of attention and
+  MLA (with the KV heads its query heads read; self-, cross- and the
+  encoder's non-causal attention alike), ``d_ff`` of the MLP, the
+  vocabulary of the embedding and the unembedding, the experts through
+  the expert-parallel dispatches, the output columns of ``patch_proj``,
+  and Mamba2's SSM heads with the ``d_inner`` channels they own (B and C
+  whole at every position); a layer whose dimension does not divide the
+  model axis computes whole at every position, unsummed;
 * it gathers those slices from the placed leaves by global range
   (:func:`~repro_torch.sharding.placement.read_region`): each block from
   its first holder, whose shard is a leaf of its own for autograd, so
   every use of a block adds to that leaf's gradient, at the block's
   shape: the reduction over ``"data"`` and the reduce-scatter are
   autograd's own sums;
-* row-parallel products and the vocab-parallel lookup end in a sum over
+* row-parallel products, the vocab-parallel lookup and the gated norm's
+  sum of squares over the split ``d_inner`` end in a sum over
   ``"model"`` (:func:`~repro_torch.models.layers._psum`);
 * the losses are global: masked NLL sums over mask counts, summed over
   the data positions; the vocab-parallel log-sum-exp combines the
@@ -37,11 +41,13 @@ Microbatches (``cfg.grad_accum``) are the one-device rows ``[i·b/ga,
 (i+1)·b/ga)``, split over the data positions as ``torch.tensor_split``
 splits them (a share that does not divide leaves some positions fewer
 rows, or none).  ``cfg.remat`` recomputes each layer, and each CE chunk,
-over all positions, sums included; the positions' streams are pinned
-for the step (:meth:`~repro_torch.launch.mesh.FilterMesh.pinned_streams`),
-so a recompute in autograd's thread runs on the streams its forward ran
-on.  The products stay ``torch.einsum``
-and ``matmul``: the JAX package computes them outside any Pallas kernel.
+over all positions, sums included (the hybrid's unit is a Mamba2 layer
+with the shared attention block that may follow it, as in the JAX
+model); the positions' streams are pinned for the step
+(:meth:`~repro_torch.launch.mesh.FilterMesh.pinned_streams`), so a
+recompute in autograd's thread runs on the streams its forward ran on.
+The products, the convolutions and the SSD scan stay ``torch`` ops: the
+JAX package computes them outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -50,6 +56,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..models import layers as L
 from ..models import transformer as T
@@ -58,10 +65,6 @@ from ..sharding.ctx import mesh_context
 from ..sharding.placement import (PlacedTensor, from_blocks, holders,
                                   read_region)
 from ..tree import tree_leaves, tree_map, tree_unflatten
-
-#: the families with a partitioned step; the others run on a 1 x 1 mesh
-DECODER_FAMILIES = ("dense", "moe", "vlm")
-
 
 class _Positions:
     """One microbatch's forward over the positions of ``mesh``."""
@@ -82,6 +85,12 @@ class _Positions:
             elif g % hl == 0:
                 self.heads = (hl, 1)
         self.vocab_split = cfg.vocab_eff % self.tp == 0
+        self.ssm = None                   # local Mamba2 heads
+        if cfg.ssm_state and cfg.ssm_heads % self.tp == 0:
+            hl = cfg.ssm_heads // self.tp
+            per = cfg.ssm_heads // cfg.ssm_groups     # heads a group
+            if hl % per == 0 or per % hl == 0:        # whole groups
+                self.ssm = hl
 
     # ----------------------------------------------------------- plumbing
     def m(self, idx) -> int:
@@ -169,40 +178,55 @@ class _Positions:
                            dim=-1)
         return {"wi": wi, "wo": self.w(mp["wo"], idx, *pre, fs)}, True
 
+    def add(self, xs: dict, ys: dict) -> dict:
+        """The residual ``x + y`` at each position."""
+        out = {}
+        for idx in self.pos:
+            with self.on(idx):
+                out[idx] = xs[idx] + ys[idx]
+        return out
+
+    def attn_block(self, ap: dict, ln: dict, pre: tuple, xs: dict,
+                   positions: dict, causal: bool = True,
+                   kv: dict | None = None) -> dict:
+        """``x + attention(rms_norm(x, ln))`` over the positions, MLA where
+        the config has it; ``kv`` holds each position's encoder output,
+        which cross-attention's keys and values read."""
+        cfg = self.cfg
+        h = self.norm(ln, xs, pre)
+        aw = {idx: self.attn_weights(ap, pre, idx) for idx in self.pos}
+        parts = {}
+        for idx in self.pos:
+            acfg, p, hm = aw[idx]
+            with self.on(idx, *tree_leaves(p), hm):
+                if cfg.mla:
+                    parts[idx], _ = L.mla_attention(
+                        acfg, p, h[idx], positions=positions[idx],
+                        head_mask=hm)
+                else:
+                    parts[idx], _ = L.attention(
+                        acfg, p, h[idx], positions=positions[idx],
+                        causal=causal, head_mask=hm,
+                        kv_x=None if kv is None else kv[idx])
+        return self.add(xs, self.psum(parts) if self.heads is not None
+                        else parts)
+
+    def ffn_block(self, fp: dict, ln: dict, pre: tuple, xs: dict, ffn: str,
+                  gelu: bool = False) -> dict:
+        """``x + f(rms_norm(x, ln))``, ``f`` the ``"moe"`` or the
+        ``"mlp"`` (GELU or SwiGLU) over the positions."""
+        h = self.norm(ln, xs, pre)
+        return self.add(xs, self.moe(fp, pre, h) if ffn == "moe"
+                        else self.mlp(fp, pre, h, gelu=gelu))
+
     def layer(self, lp: dict, i, xs: dict, positions: dict,
               ffn: str) -> dict:
         """One decoder layer (``_decoder_layer``) over the positions;
         ``i`` indexes a stacked layer tree (``None``: unstacked)."""
-        cfg = self.cfg
         pre = () if i is None else (i,)
-        ln = {idx: (self.w(lp["ln1"]["scale"], idx, *pre),
-                    self.w(lp["ln2"]["scale"], idx, *pre))
-              for idx in self.pos}
-        aw = {idx: self.attn_weights(lp["attn"], pre, idx)
-              for idx in self.pos}
-        parts = {}
-        for idx in self.pos:
-            acfg, ap, hm = aw[idx]
-            with self.on(idx, *ln[idx], *tree_leaves(ap), hm):
-                h = L.rms_norm(xs[idx], {"scale": ln[idx][0]}, cfg.norm_eps)
-                fn = L.mla_attention if cfg.mla else L.attention
-                kw = {} if cfg.mla else {"causal": True}
-                parts[idx], _ = fn(acfg, ap, h, positions=positions[idx],
-                                   head_mask=hm, **kw)
-        a = self.psum(parts) if self.heads is not None else parts
-        x1, h2 = {}, {}
-        for idx in self.pos:
-            with self.on(idx):
-                x1[idx] = xs[idx] + a[idx]
-                h2[idx] = L.rms_norm(x1[idx], {"scale": ln[idx][1]},
-                                     cfg.norm_eps)
-        f = self.moe(lp["moe"], pre, h2) if ffn == "moe" \
-            else self.mlp(lp["mlp"], pre, h2, gelu=cfg.mlp_gelu)
-        out = {}
-        for idx in self.pos:
-            with self.on(idx):
-                out[idx] = x1[idx] + f[idx]
-        return out
+        xs = self.attn_block(lp["attn"], lp["ln1"], pre, xs, positions)
+        return self.ffn_block(lp[ffn], lp["ln2"], pre, xs, ffn,
+                              gelu=self.cfg.mlp_gelu)
 
     def mlp(self, mp: dict, pre: tuple, hs: dict, gelu: bool = False) -> dict:
         ws = {idx: self.mlp_weights(mp, pre, idx, gelu) for idx in self.pos}
@@ -299,6 +323,59 @@ class _Positions:
                 with self.on(idx):
                     y[idx] = y[idx] + shared[idx]
         return {idx: y[idx].reshape(hs[idx].shape) for idx in self.pos}
+
+    def mamba(self, mp: dict, pre: tuple, hs: dict) -> dict:
+        """``layers.mamba2`` over the positions: each its SSM heads, with
+        the ``d_inner`` channels, convolution taps and per-head scalars
+        they own, and B and C whole; the gated norm's sum of squares and
+        the row-parallel ``out_proj`` summed over ``"model"``.  Heads that
+        do not split into whole groups over the model axis compute whole
+        at every position."""
+        cfg = self.cfg
+        if self.ssm is None:
+            ps = {idx: self.whole(mp, idx, pre) for idx in self.pos}
+            out = {}
+            for idx in self.pos:
+                with self.on(idx, *tree_leaves(ps[idx])):
+                    out[idx], _ = L.mamba2(cfg, ps[idx], hs[idx])
+            return out
+        hl, per = self.ssm, cfg.ssm_heads // cfg.ssm_groups
+        ws, groups = {}, {}
+        for idx in self.pos:
+            m = self.m(idx)
+            heads = slice(m * hl, (m + 1) * hl)
+            chans = slice(heads.start * cfg.ssm_headdim,
+                          heads.stop * cfg.ssm_headdim)
+            w = {k: self.w(mp[k], idx, *pre)
+                 for k in ("b_proj", "c_proj", "conv_bc", "conv_b_bc")}
+            for k in ("zx_proj", "conv_x", "dt_proj"):
+                w[k] = self.w(mp[k], idx, *pre, slice(None),
+                              heads if k == "dt_proj" else chans)
+            for k in ("a_log", "d_skip", "dt_bias"):
+                w[k] = self.w(mp[k], idx, *pre, heads)
+            for k, leaf in (("conv_b_x", mp["conv_b_x"]),
+                            ("scale", mp["gate_norm"]["scale"]),
+                            ("out_proj", mp["out_proj"])):
+                w[k] = self.w(leaf, idx, *pre, chans)
+            ws[idx] = w
+            groups[idx] = slice(heads.start // per,
+                                (heads.stop - 1) // per + 1)
+        gated, ss = {}, {}
+        for idx in self.pos:
+            with self.on(idx, *ws[idx].values()):
+                y, z, _ = L._mamba2_mix(cfg, ws[idx], hs[idx],
+                                        groups=groups[idx])
+                gated[idx] = (y * F.silu(z.float()).to(y.dtype)).float()
+                ss[idx] = (gated[idx] * gated[idx]).sum(-1, keepdim=True)
+        ss = self.psum(ss)
+        parts = {}
+        for idx in self.pos:
+            with self.on(idx):
+                y = gated[idx] * torch.rsqrt(ss[idx] / cfg.d_inner
+                                             + cfg.norm_eps)
+                y = (y * ws[idx]["scale"].float()).to(hs[idx].dtype)
+                parts[idx] = L.matmul(y, ws[idx]["out_proj"])
+        return self.psum(parts)
 
     # ------------------------------------------------- vocabulary, losses
     def vocab_slice(self, idx) -> slice:
@@ -420,19 +497,15 @@ class _Positions:
             with self.on(idx):
                 b, l, _ = xs[idx].shape
                 positions[idx] = T._positions(b, l, None, xs[idx].device)
-
-        def stack(tree, xs, ffn):
-            for i in range(T.n_stacked(tree)):
-                if cfg.remat:
-                    xs = T._recomputed(self.layer, tree, i, xs, positions,
-                                       ffn)
-                else:
-                    xs = self.layer(tree, i, xs, positions, ffn)
-            return xs
-
-        if cfg.dense_prefix:
-            xs = stack(params["prefix_layers"], xs, "mlp")
-        xs = stack(params["layers"], xs, "moe" if cfg.n_experts else "mlp")
+        if cfg.family in ("ssm", "hybrid"):
+            xs = self.mamba_stack(params, xs, positions)
+        elif cfg.family == "encdec":
+            xs = self.encdec(params, batch, xs, positions)
+        else:
+            if cfg.dense_prefix:
+                xs = self.stack(params["prefix_layers"], xs, positions, "mlp")
+            xs = self.stack(params["layers"], xs, positions,
+                            "moe" if cfg.n_experts else "mlp")
         h = self.norm(params["final_norm"], xs)
         n_p = batch[self.pos[0]]["patches"].shape[1] \
             if cfg.family == "vlm" else 0
@@ -457,10 +530,86 @@ class _Positions:
             metrics["loss"] = loss
         return loss, metrics
 
-    def norm(self, p: dict, xs: dict) -> dict:
+    def remat(self, fn, *args):
+        """``fn(*args)``, recomputed in the backward pass where
+        ``cfg.remat`` holds (the JAX model's ``jax.checkpoint``)."""
+        return T._recomputed(fn, *args) if self.cfg.remat else fn(*args)
+
+    def stack(self, tree: dict, xs: dict, positions: dict, ffn: str) -> dict:
+        """A stacked tree of decoder layers (``_run_stack``)."""
+        for i in range(T.n_stacked(tree)):
+            xs = self.remat(self.layer, tree, i, xs, positions, ffn)
+        return xs
+
+    def mamba_stack(self, params: dict, xs: dict, positions: dict) -> dict:
+        """The Mamba2 layers of ``_ssm_lm_apply`` and ``_hybrid_lm_apply``:
+        ``x + mamba(rms_norm(x, ln))``, and in the hybrid the shared
+        attention block (one set of weights, unstacked) after every
+        ``hybrid_period``-th layer, in the same recompute unit."""
+        cfg = self.cfg
+        lp = params["layers"]
+        period = cfg.hybrid_period if cfg.family == "hybrid" else 0
+
+        def body(xs, i):
+            h = self.norm(lp["ln"], xs, (i,))
+            xs = self.add(xs, self.mamba(lp["mamba"], (i,), h))
+            if period and i % period == period - 1:
+                sp = params["shared_attn"]
+                xs = self.attn_block(sp["attn"], sp["ln"], (), xs, positions)
+                xs = self.ffn_block(sp["mlp"], sp["ln2"], (), xs, "mlp")
+            return xs
+
+        for i in range(cfg.n_layers):
+            xs = self.remat(body, xs, i)
+        return xs
+
+    def encdec(self, params: dict, batch: dict, xs: dict,
+               positions: dict) -> dict:
+        """``_encdec_apply`` from the embedded tokens: the encoder over
+        each position's rows of ``frames`` (``_encode``: non-causal
+        attention, a GELU MLP, ``enc_norm``), whose output is whole along
+        ``"model"`` after its sums; then the decoder layers
+        (``_dec_layer``: causal self-attention, cross-attention on the
+        encoder output, a GELU MLP) over the sinusoid-embedded tokens."""
+        cfg = self.cfg
+        dt = L.dtype_of(cfg)
+        ep, dp = params["enc_layers"], params["dec_layers"]
+        x, epos, ys = {}, {}, {}
+        for idx in self.pos:
+            fr = batch[idx]["frames"]
+            with self.on(idx, fr):
+                b, t, _ = fr.shape
+                epos[idx] = T._positions(b, t, None, fr.device)
+                x[idx] = fr.to(dt) + T._sinusoid(epos[idx],
+                                                 cfg.d_model).to(dt)
+                ys[idx] = xs[idx] + T._sinusoid(
+                    positions[idx], cfg.d_model).to(xs[idx].dtype)
+
+        def enc_layer(x, i):
+            x = self.attn_block(ep["attn"], ep["ln1"], (i,), x, epos,
+                                causal=False)
+            return self.ffn_block(ep["mlp"], ep["ln2"], (i,), x, "mlp",
+                                  gelu=True)
+
+        def dec_layer(xs, i, enc):
+            xs = self.attn_block(dp["self_attn"], dp["ln1"], (i,), xs,
+                                 positions)
+            xs = self.attn_block(dp["cross_attn"], dp["ln_x"], (i,), xs,
+                                 positions, causal=False, kv=enc)
+            return self.ffn_block(dp["mlp"], dp["ln2"], (i,), xs, "mlp",
+                                  gelu=True)
+
+        for i in range(cfg.n_enc_layers):
+            x = self.remat(enc_layer, x, i)
+        enc = self.norm(params["enc_norm"], x)
+        for i in range(cfg.n_layers):
+            ys = self.remat(dec_layer, ys, i, enc)
+        return ys
+
+    def norm(self, p: dict, xs: dict, pre: tuple = ()) -> dict:
         out = {}
         for idx in self.pos:
-            scale = self.w(p["scale"], idx)
+            scale = self.w(p["scale"], idx, *pre)
             with self.on(idx, scale):
                 out[idx] = L.rms_norm(xs[idx], {"scale": scale},
                                       self.cfg.norm_eps)
@@ -540,11 +689,6 @@ def grads_and_metrics(cfg: ModelConfig, params: Any, batch: dict,
     owner = {id(p): holders(p) for p in leaves}
     if mesh.size == 1:
         return _one_position(cfg, params, leaves, batch)
-    if cfg.family not in DECODER_FAMILIES:
-        raise NotImplementedError(
-            f"the sharded train step covers the decoder families "
-            f"{DECODER_FAMILIES}; {cfg.family} ({cfg.name}) on a mesh wider "
-            f"than 1 x 1 is ROADMAP item 14h")
     dev0 = mesh.device(mesh.positions()[0])
     batch = {k: torch.as_tensor(v, device=dev0) for k, v in batch.items()}
     ga = max(cfg.grad_accum, 1)

@@ -91,9 +91,8 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer,
     place (the JAX step's donated buffers) and the step returns them.
 
     On parameters and state placed on a mesh the step runs over its
-    positions and updates the placed shards in place.  The ``ssm``,
-    ``hybrid`` and ``encdec`` families run so only on a 1 x 1 mesh; wider
-    ones raise ``NotImplementedError`` (ROADMAP item 14h).
+    positions (:mod:`.sharded_step`, every family on every mesh) and
+    updates the placed shards in place.
     """
 
     def step(params, opt_state, batch, step_idx):

@@ -294,3 +294,45 @@ def test_cli_writes_a_json_a_cell(tmp_path, monkeypatch):
     art = json.load(open(tmp_path / files[0]))
     assert art["status"] == "ok" and art["estimate"] == "specs"
     assert art["h100_bytes"] == D.H100_80G_BYTES
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-7b",
+                                  "whisper-large-v3"])
+def test_placed_family_bytes_equal_the_dry_run(arch):
+    """The ssm, hybrid and encdec families' trees placed on a 2 x 2 grid of
+    the CPU device as the sharded step places them (parameters by the
+    rule shardings, AdamW's state by ``opt_state_specs``) and a batch of
+    the dry run's dtypes (whisper's ``frames`` bfloat16): the bytes a
+    position, the batch's rows included, equal the dry run's argument
+    bytes less the step scalar."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding.placement import NamedSharding, device_put
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.tree import tree_leaves, tree_map_with_path
+
+    cfg = get_config(arch, reduced=True)
+    mesh = make_host_mesh(2, devices=["cpu"] * 4)
+    params = T.init_model(cfg, torch.Generator().manual_seed(0))
+    shapes = T.init_model(cfg, None)
+    pspecs = R.param_specs(cfg, shapes, mesh)
+
+    def named(specs):
+        return tree_map_with_path(lambda _, s: NamedSharding(mesh, s), specs,
+                                  is_leaf=R.is_spec)
+    opt = make_optimizer(cfg.optimizer)
+    placed = (device_put(params, named(pspecs)),
+              device_put(opt.init(params), named(D.opt_state_specs(
+                  cfg.optimizer, shapes, pspecs, mesh))))
+    first = mesh.positions()[0]
+    got = sum(x.shards[first].numel() * x.shards[first].element_size()
+              for x in tree_leaves(placed))
+    shape = ShapeSpec("mini", 16, 4, "train")
+    batch = {k: torch.zeros(v.shape, dtype=v.dtype)
+             for k, v in batch_struct(cfg, shape).items()}
+    assert set(batch) == ({"tokens", "labels", "frames"}
+                          if cfg.family == "encdec" else {"tokens", "labels"})
+    rows = shape.global_batch // mesh.shape["data"]
+    got += sum(rows * v[0].numel() * v.element_size() for v in batch.values())
+    want = D.cell_bytes(Cell(arch, shape, True), mesh, cfg)
+    assert want["step"] == 4
+    assert got == want["argument_B"] - want["step"]

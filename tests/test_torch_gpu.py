@@ -36,7 +36,11 @@ grid, each position on its own stream, against the card's single-device
 ``moe`` and the CPU's expert-parallel one.  The sharded train step on that
 grid (dense with remat and CE chunks, MLA with MTP and Adafactor, both
 expert-parallel dispatches, the VLM prefix), repeated, against the card's
-one-device step and the CPU grid's sharded step.  The file imports
+one-device step and the CPU grid's sharded step; mamba2, zamba2 and
+whisper's sharded step there, with the positions' streams on and off
+bit for bit; and the one-device ``train_loss`` under the grid's mesh
+context with ``remat``, whose recompute (in autograd's own thread) must
+take its forward's expert-parallel branch.  The file imports
 nothing of JAX, so it runs where only the port is installed.
 """
 import contextlib
@@ -1477,3 +1481,145 @@ def test_sharded_step_on_card_grid(cuda, no_tf32, name):
     want = make_train_step(cfg, opt)(_to(params, cuda), opt.init(
         _to(params, cuda)), batch, np.int32(0))[2]
     assert float(m["loss"]) == pytest.approx(float(want["loss"]), rel=1e-5)
+
+
+@pytest.mark.parametrize("shape,branch", [((4, 8), "stationary"),
+                                          ((4, 552), "shardmap")])
+def test_remat_recomputes_under_the_mesh_context_on_card(
+        cuda, no_tf32, monkeypatch, shape, branch):
+    """Reduced qwen3-moe-30b-a3b's one-device ``train_loss`` and its
+    gradients inside ``mesh_context`` of the 2 x 2 card grid: with
+    ``remat`` each layer's recompute (in autograd's own thread) takes the
+    branch its forward took, and the gradients equal those without
+    ``remat`` within the bounds of ``tests/test_moe_ep.py`` (loss 1e-4,
+    each leaf 1e-5 of its largest)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import mesh_context
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
+    cfg = get_config("qwen3-moe-30b-a3b", reduced=True)
+    params = _to(T.init_model(cfg, torch.Generator().manual_seed(0)), cuda)
+    tok = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (shape[0], shape[1] + 1)).astype(np.int32)).to(cuda)
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    taken: list = []
+    for name in ("_moe_ep_stationary", "_moe_ep_shardmap", "_moe_single"):
+        def wrap(*a, _f=getattr(L, name), _n=name.split("_")[-1], **k):
+            taken.append(_n)
+            return _f(*a, **k)
+        monkeypatch.setattr(L, name, wrap)
+    grid = _card_grid(cuda)
+    runs = {}
+    for remat in (True, False):
+        leaves = [x.detach().requires_grad_(True)
+                  for x in tree_leaves(params)]
+        taken.clear()
+        with mesh_context(grid):
+            loss, _ = T.train_loss(cfg.with_(remat=remat),
+                                   tree_unflatten(params, leaves), batch)
+            grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        runs[remat] = (float(loss.detach()), [g.cpu() for g in grads],
+                       list(taken))
+    assert runs[False][2] == [branch] * cfg.n_layers
+    assert runs[True][2] == [branch] * (2 * cfg.n_layers)
+    assert abs(runs[True][0] - runs[False][0]) < 1e-4
+    for a, b in zip(runs[True][1], runs[False][1]):
+        d = float((a - b).abs().max())
+        assert d / (float(b.abs().max()) + 1e-9) < 1e-5, d
+
+
+#: the ssm, hybrid and encdec families on the card grid: (arch, overrides,
+#: rows, tokens a row)
+SHARDED_FAMILIES_ON_CARD = {
+    "mamba2-780m": ("mamba2-780m", {"remat": True}, 4, 16),
+    "zamba2-7b": ("zamba2-7b", {"remat": True, "grad_accum": 2}, 4, 16),
+    "whisper-large-v3": ("whisper-large-v3", {"remat": True}, 4, 16),
+}
+
+
+@pytest.mark.parametrize("name", list(SHARDED_FAMILIES_ON_CARD))
+def test_family_sharded_step_on_card_grid(cuda, no_tf32, name):
+    """The sharded train step of the reduced ssm, hybrid and encdec models
+    on the 2 x 2 card grid: each position on its own stream (repeated)
+    and all on the caller's stream give the same loss and gradients bit
+    for bit; the loss within 1e-5 relative of the card's one-device
+    step's, and each gathered gradient leaf within ``rtol=1e-4,
+    atol=1e-6`` of it or, where the one-device step is itself farther
+    than that from a float64 one-device step, no farther from the float64
+    step than 1.5 times the one-device step; the same against the CPU
+    grid's sharded step; a step through ``make_train_step`` keeps the
+    shardings and its loss agrees with the one-device step's."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import rules as R
+    from repro_torch.sharding.placement import (NamedSharding, device_put,
+                                                gather)
+    from repro_torch.train import make_optimizer, make_train_step
+    from repro_torch.train import sharded_step
+    from repro_torch.train.train_step import grads_and_metrics
+    from repro_torch.tree import tree_leaves, tree_map_with_path
+    from test_torch_sharded_step import bound_ratio
+
+    arch, over, rows, seq = SHARDED_FAMILIES_ON_CARD[name]
+    cfg = get_config(arch, reduced=True, **over)
+    params = T.init_model(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    tok = rng.integers(0, cfg.vocab, (rows, seq + 1)).astype(np.int32)
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    if cfg.family == "encdec":
+        batch["frames"] = rng.normal(
+            size=(rows, cfg.frontend_len, cfg.d_model)).astype(np.float32)
+    opt = make_optimizer(cfg.optimizer)
+
+    def placed(dev, mesh):
+        shapes = T.init_model(cfg, None)
+        pspecs = R.param_specs(cfg, shapes, mesh)
+
+        def named(specs):
+            return tree_map_with_path(lambda _, s: NamedSharding(mesh, s),
+                                      specs, is_leaf=R.is_spec)
+        p = _to(params, dev)
+        return (device_put(p, named(pspecs)),
+                device_put(opt.init(p), named(D.opt_state_specs(
+                    cfg.optimizer, shapes, pspecs, mesh))))
+
+    def leaves(run):
+        return [gather(x).cpu() if not isinstance(x, torch.Tensor)
+                else x.cpu() for x in tree_leaves(run[0])]
+
+    one = grads_and_metrics(cfg, _to(params, cuda), batch)
+    c64 = cfg.with_(param_dtype="float64", activ_dtype="float64")
+    g64 = leaves(grads_and_metrics(c64, _to(tree_map_with_path(
+        lambda _, x: x.double(), params), cuda), batch))
+    one_g = leaves(one)
+
+    def close(run):
+        assert float(run[1]["loss"]) == pytest.approx(
+            float(one[1]["loss"]), rel=1e-5)
+        for a, b, c in zip(leaves(run), one_g, g64):
+            r = bound_ratio(a, b)
+            if r > 1.0:
+                assert bound_ratio(a, c) <= 1.5 * bound_ratio(b, c) \
+                    and bound_ratio(b, c) > 1.0, r
+
+    pl, state = placed(cuda, _card_grid(cuda))
+    on = [sharded_step.grads_and_metrics(cfg, pl, batch, streams=True)
+          for _ in range(SHARDED_REPEATS)]
+    off = sharded_step.grads_and_metrics(cfg, pl, batch, streams=False)
+    for r in on:        # float32 words, bit for bit
+        assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip([r[1]["loss"].cpu(), *leaves(r)],
+                                   [off[1]["loss"].cpu(), *leaves(off)]))
+    close(off)
+    close(sharded_step.grads_and_metrics(cfg, placed("cpu", make_host_mesh(
+        2, devices=["cpu"] * 4))[0], batch))
+    before = [x.sharding for x in tree_leaves((pl, state))]
+    p2, s2, m = make_train_step(cfg, opt)(pl, state, batch, np.int32(0))
+    assert [x.sharding for x in tree_leaves((p2, s2))] == before
+    assert float(m["loss"]) == pytest.approx(float(one[1]["loss"]), rel=1e-5)
+

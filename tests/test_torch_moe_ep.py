@@ -267,3 +267,56 @@ def test_streams_off_is_the_same_arithmetic(grid):
     for f in (L._moe_ep_stationary, L._moe_ep_shardmap):
         assert torch.equal(f(cfg, p, x2, grid), f(cfg, p, x2, grid,
                                                   streams=False))
+
+
+def branch_log(monkeypatch) -> list:
+    """Log each ``moe`` dispatch taken: ``"stationary"``, ``"shardmap"``
+    or ``"single"``."""
+    taken: list = []
+    for name in ("_moe_ep_stationary", "_moe_ep_shardmap", "_moe_single"):
+        def wrap(*a, _f=getattr(L, name), _n=name.split("_")[-1], **k):
+            taken.append(_n)
+            return _f(*a, **k)
+        monkeypatch.setattr(L, name, wrap)
+    return taken
+
+
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_remat_recomputes_under_the_forwards_mesh(grid, monkeypatch, shape):
+    """Reduced qwen3-moe's ``train_loss`` recorded under ``mesh_context``
+    with ``remat=True`` and differentiated after the context has closed
+    (as autograd's own thread on a card sees no active mesh): each
+    layer's recompute takes the forward's expert-parallel branch, and the
+    gradients equal those of ``remat=False`` inside the context, within
+    the bounds of ``tests/test_moe_ep.py``."""
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
+    cfg = get_config("qwen3-moe-30b-a3b", reduced=True)
+    params = T.init_model(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    tok = rng.integers(0, cfg.vocab, SHAPES[shape][:1] + (
+        SHAPES[shape][1] + 1,)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(tok[:, :-1]),
+             "labels": torch.from_numpy(tok[:, 1:])}
+    taken = branch_log(monkeypatch)
+    runs = {}
+    for remat in (True, False):
+        leaves = [x.detach().requires_grad_(True)
+                  for x in tree_leaves(params)]
+        p = tree_unflatten(params, leaves)
+        taken.clear()
+        with mesh_context(grid):
+            loss, _ = T.train_loss(cfg.with_(remat=remat), p, batch)
+            if not remat:
+                grads = torch.autograd.grad(loss, leaves)
+        if remat:
+            grads = torch.autograd.grad(loss, leaves)
+        runs[remat] = (float(loss.detach()), grads, list(taken))
+    want = [WANT_BRANCH[shape]] * cfg.n_layers
+    assert runs[False][2] == want
+    assert runs[True][2] == want * 2          # forward, then recompute
+    assert abs(runs[True][0] - runs[False][0]) < FWD_TOL
+    for a, b in zip(runs[True][1], runs[False][1]):
+        d = float((a - b).abs().max())
+        assert d / (float(b.abs().max()) + 1e-9) < GRAD_RTOL, d

@@ -33,8 +33,9 @@ optimizer state by the dry run's ``opt_state_specs``:
 Also: ``grad_accum=2`` with a row share that does not divide (dense, and
 the shard-map dispatch, which then takes JAX's even token share), the int8
 compressor on placed gradients, the placed bytes a position equal to
-the dry run's argument bytes, and ``NotImplementedError`` (ROADMAP item
-14h) for mamba2, zamba2 and whisper on a grid, which run on a 1 x 1 mesh.
+the dry run's argument bytes, and mamba2, zamba2 and whisper on a grid
+and a 1 x 1 mesh (their cases against the one-device step and JAX's are
+``tests/test_torch_sharded_step_families.py``).
 
 JAX's side runs once, in two subprocesses at a time with 8 forced host
 devices; every port parameter is JAX's initialisation carried over.
@@ -274,34 +275,49 @@ def layout(tree) -> list:
     return [(tuple(x.shape), x.sharding) for x in tree_leaves(tree)]
 
 
-@pytest.mark.parametrize("gname", list(GRIDS))
-@pytest.mark.parametrize("name", list(CASES))
-def test_sharded_step_matches_one_device(jax_side, monkeypatch, name, gname):
-    cfg, params = build(jax_side, name)
-    mesh = grid(GRIDS[gname])
-    opt = make_optimizer(cfg.optimizer)
-    b0, b1 = batches(name)
-    taken = []
-    for fn in ("_ep_stationary_parts", "_ep_shardmap_parts"):
-        def wrap(*a, _f=getattr(L, fn), _n=fn, **k):
-            taken.append(_n.split("_")[2])
-            return _f(*a, **k)
-        monkeypatch.setattr(L, fn, wrap)
+def bound_ratio(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest ``|got - want|`` over ``GRAD_TOL``'s bound ``atol +
+    rtol·|want|``, in float64."""
+    d = (got.double() - want.double()).abs()
+    return float((d / (GRAD_TOL["atol"] + GRAD_TOL["rtol"]
+                       * want.double().abs())).max())
 
+
+def check_one_device(cfg, params, mesh, b0, b1, f64: bool = False) -> None:
+    """The step on ``params`` placed on ``mesh`` against the one-device
+    step: the loss within ``LOSS_RTOL``, the gathered gradients within
+    ``GRAD_TOL``, the updates from the same gradients within
+    ``UPDATE_TOL``, the shardings kept, and a second step's loss through
+    ``make_train_step``.
+
+    With ``f64``, a gradient leaf the float32 one-device step itself does
+    not hold within ``GRAD_TOL`` of a float64 one-device step (a sum that
+    cancels) passes when it is no farther from the float64 step than 1.5
+    times the float32 one-device step is (the rule of ``chip_smoke.py``
+    phase 14)."""
+    opt = make_optimizer(cfg.optimizer)
     one, one_state = clone(params), opt.init(params)
     pl, pl_state = place(cfg, clone(params), opt.init(params), mesh,
                          cfg.optimizer)
     before = layout((pl, pl_state))
     g1, m1 = grads_and_metrics(cfg, one, b0)
     g2, m2 = grads_and_metrics(cfg, pl, b0)
-    assert set(taken) <= {BRANCH.get(name)}
-    if name in BRANCH:
-        assert taken and set(taken) == {BRANCH[name]}
     for k in m1:
         assert float(m2[k]) == pytest.approx(float(m1[k]), rel=LOSS_RTOL)
-    for (path, want), got in zip(tree_flatten_with_path(g1),
-                                 tree_leaves(g2)):
-        np.testing.assert_allclose(gather(got).numpy(), want.numpy(),
+    g64 = None
+    if f64:
+        g64 = tree_leaves(grads_and_metrics(
+            cfg.with_(param_dtype="float64", activ_dtype="float64"),
+            tree_map_with_path(lambda _, x: x.double(), params), b0)[0])
+    for i, ((path, want), got) in enumerate(zip(tree_flatten_with_path(g1),
+                                                tree_leaves(g2))):
+        got = gather(got)
+        if g64 is not None and bound_ratio(got, want) > 1.0:
+            one_off = bound_ratio(want, g64[i])
+            assert one_off > 1.0, (path, bound_ratio(got, want))
+            assert bound_ratio(got, g64[i]) <= 1.5 * one_off, (path, one_off)
+            continue
+        np.testing.assert_allclose(got.numpy(), want.numpy(),
                                    err_msg=str(path), **GRAD_TOL)
     # the updates from the same (gathered) gradients
     opt.update(tree_map_with_path(lambda _, g: gather(g), g2), one_state,
@@ -318,6 +334,22 @@ def test_sharded_step_matches_one_device(jax_side, monkeypatch, name, gname):
     for k in s1:
         assert float(out[2][k]) == pytest.approx(float(s1[k]),
                                                  rel=10 * LOSS_RTOL)
+
+
+@pytest.mark.parametrize("gname", list(GRIDS))
+@pytest.mark.parametrize("name", list(CASES))
+def test_sharded_step_matches_one_device(jax_side, monkeypatch, name, gname):
+    cfg, params = build(jax_side, name)
+    taken = []
+    for fn in ("_ep_stationary_parts", "_ep_shardmap_parts"):
+        def wrap(*a, _f=getattr(L, fn), _n=fn, **k):
+            taken.append(_n.split("_")[2])
+            return _f(*a, **k)
+        monkeypatch.setattr(L, fn, wrap)
+    check_one_device(cfg, params, grid(GRIDS[gname]), *batches(name))
+    assert set(taken) <= {BRANCH.get(name)}
+    if name in BRANCH:
+        assert taken and set(taken) == {BRANCH[name]}
 
 
 JAX_CASES = [c for group in JAX_GROUPS for c in group]
@@ -462,6 +494,12 @@ OTHERS = ("mamba2-780m", "zamba2-7b", "whisper-large-v3")
 
 @pytest.mark.parametrize("arch", OTHERS)
 def test_other_families_raise_on_a_grid_and_run_on_1x1(arch):
+    """The ssm, hybrid and encdec families, which once raised on a grid:
+    on a 1 x 1 mesh the step is the one-device step to the bit; on the
+    2 x 2 grid it runs and meets :func:`check_one_device`'s bounds, its
+    float64 rule included (zamba2's embedding gradient cancels here);
+    ``tests/test_torch_sharded_step_families.py`` holds them to the
+    one-device step and to JAX's."""
     cfg = get_config(arch, reduced=True)
     params = T.init_model(cfg, torch.Generator().manual_seed(0))
     rng = np.random.default_rng(0)
@@ -472,10 +510,6 @@ def test_other_families_raise_on_a_grid_and_run_on_1x1(arch):
             size=(2, cfg.frontend_len, cfg.d_model)).astype(np.float32)
     opt = make_optimizer(cfg.optimizer)
     step = make_train_step(cfg, opt)
-    pl, st = place(cfg, clone(params), opt.init(params), grid((2, 2)),
-                   cfg.optimizer)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14h"):
-        step(pl, st, batch, np.int32(0))
     one = clone(params)
     _, _, want = step(one, opt.init(one), batch, np.int32(0))
     pl, st = place(cfg, clone(params), opt.init(params), grid((1, 1)),
@@ -484,3 +518,4 @@ def test_other_families_raise_on_a_grid_and_run_on_1x1(arch):
     assert float(got["loss"]) == float(want["loss"])
     assert max_diff(pl, one) == 0.0
     assert all(len(holders(x)) == 1 for x in tree_leaves(pl))
+    check_one_device(cfg, params, grid((2, 2)), batch, batch, f64=True)
