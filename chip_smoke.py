@@ -212,8 +212,31 @@ printed as it runs; any failure exits non-zero:
    zamba2-7b with 12 of its 81 layers (two invocations of the shared
    attention block, ``grad_accum`` 2) at 4 x 2,048, and
    whisper-large-v3 with 8 of its 32 encoder and 8 of its 32 decoder
-   layers at 4 x 448 tokens and 1,500 frames a row from seed 0;
-15. the end-to-end line, one ``{"kernels": [...]}`` line, the card line,
+   layers at 4 x 448 tokens and 1,500 frames a row from seed 0; (a) also
+   counts the accessed and collective bytes of the two ``train_4k``
+   cells' partitioned steps and of qwen3-0.6b's ``prefill_32k`` and
+   ``decode_32k`` cells at 16 x 16 (``launch.cost_analysis``);
+15. the partitioned prefill and decode (``serve.sharded_step``; no kernel
+   of the table) on phase 13's 2 x 2 grid of the card, float32, TF32 off,
+   parameters placed by ``param_specs`` and float32 caches by
+   ``cache_specs``, each step's logits within 2e-4 of the one-device
+   step's on the same tokens (the one-device ``ServeEngine``'s greedy
+   tokens, fed to both): (a) qwen3-0.6b at its published width, 8 x
+   128-token prompts and 32 decode steps; (b) qwen3-moe-30b-a3b at its
+   widths with 2 of its 48 layers, 8 x 128 tokens (the weights-stationary
+   dispatch) and 4 x 640 (the shard-map dispatch), 8 decode steps each
+   (stationary), ``capacity_factor`` 16 so that no dispatch drops an
+   assignment; (c) deepseek-v3-671b's MLA at its widths with its 3 dense
+   prefix layers, 8 x 128 tokens and 8 decode steps.  Each case: prefill
+   and decode ms (CUDA events) beside the one-device step's, kernels and
+   busy ms a step (``torch.profiler``), peak memory beside the bytes a
+   position, and the collective bytes of each kind that
+   ``CollectiveCounter`` counts in the card's prefill and decode steps,
+   which must equal a meta grid's count of the same steps exactly (a
+   consistency check of one counting code on the card's tensors and on
+   meta shapes; what validates the counts is
+   ``tests/test_torch_cells_dryrun.py``'s ledger against XLA's);
+16. the end-to-end line, one ``{"kernels": [...]}`` line, the card line,
    and the result line.
 """
 from __future__ import annotations
@@ -359,6 +382,22 @@ SHARDED_FAMILY_CASES = (
     ("zamba2-7b", 12, 4, 2048, {}),
     ("whisper-large-v3", 8, 4, 448, {}),
 )
+
+# phase 15, the partitioned prefill and decode on phase 13's grid: (name,
+# arch, layers kept (0: all), overrides, prefill cases (rows, prompt
+# tokens, the prefill's EP dispatch), decode steps); teacher-forced with
+# the one-device ServeEngine's greedy tokens; the whole phase takes about
+# 60-120 s of its 250 s budget (no float64 reference, no backward pass)
+SERVE_SHARDED_CASES = (
+    ("a", LM_ARCH, 0, {}, ((8, 128, None),), 32),
+    ("b", MOE_ARCH, 2, {"capacity_factor": 16.0},
+     ((8, 128, "stationary"), (4, 640, "shardmap")), 8),
+    ("c", "deepseek-v3-671b", 3, {}, ((8, 128, None),), 8),
+)
+SERVE_SHARDED_TOL = 2e-4
+# the 14(a) serving cells whose partitioned steps' bytes are counted
+SHARDED_COUNT_CELLS = (("qwen3-0.6b", "prefill_32k"),
+                       ("qwen3-0.6b", "decode_32k"))
 
 # card peaks (H100 SXM data sheet): HBM bytes/s, the 32-bit non-tensor
 # rate, which bounds the kernels' integer bit operations and K6's float32
@@ -3722,7 +3761,9 @@ def sharded_case(what: str, cfg, pipe, grid, dev, *, timed: bool,
                                  f"{art.get('error')}")
     out["dryrun"] = {k: art[k] for k in (
         "params", "opt_state", "batch", "argument_B", "grad_B",
-        "saved_B_estimate", "per_position_B", "flops", "fits_h100_80g")}
+        "saved_B_estimate", "per_position_B", "flops", "fits_h100_80g",
+        "bytes_accessed_per_position", "collective_bytes_per_position",
+        "collective_breakdown_per_position", "chips")}
     check(out["placed_bytes"] == art["params"] + art["opt_state"],
           f"{what}: the placed tree holds {out['placed_bytes']} bytes a "
           f"position, the dry run counts {art['params']} + "
@@ -3881,7 +3922,19 @@ def sharded_step_phase(dev) -> dict:
             f"{art['grad_B'] / 2**30:.2f} GiB of gradients and about "
             f"{art['saved_B_estimate'] / 2**30:.2f} GiB of saved "
             f"activations (estimate): {art['per_position_B'] / 2**30:.2f} "
-            f"GiB, fits_h100_80g {art['fits_h100_80g']}")
+            f"GiB, fits_h100_80g {art['fits_h100_80g']}; "
+            + counted_bytes(art))
+    for arch, shape in SHARDED_COUNT_CELLS:
+        t = time.perf_counter()
+        art = D.run_cell(Cell(arch, SHAPES[shape], True), multi_pod=False)
+        check(art["status"] == "ok" and art["collective_bytes"],
+              f"(a) {arch} {shape}: {art.get('error')}")
+        art["seconds"] = time.perf_counter() - t
+        out["flops"][f"{arch}/{shape}"] = art
+        say(f"(a) {arch} {shape} @ pod16x16 on the meta device in "
+            f"{art['seconds']:.1f} s: a position holds "
+            f"{art['argument_B'] / 2**30:.2f} GiB of arguments; "
+            + counted_bytes(art))
 
     grid = make_host_mesh(MESH_LM_MODEL,
                           devices=[dev] * (MESH_LM_DATA * MESH_LM_MODEL))
@@ -3936,6 +3989,20 @@ def sharded_step_phase(dev) -> dict:
     out["phase_s"] = time.perf_counter() - t_phase
     say(f"phase 14 in {out['phase_s']:.1f} s")
     return out
+
+
+def counted_bytes(art: dict) -> str:
+    """The dry run's accessed and collective bytes of a cell's partitioned
+    step, as a phrase."""
+    return (f"the partitioned step (counted on the first of the "
+            f"{art['chips']} positions) accesses "
+            f"{art['bytes_accessed_per_position'] / 2**30:.2f} GiB a "
+            f"position and moves "
+            f"{art['collective_bytes_per_position'] / 2**20:.2f} MiB in "
+            f"collectives (" + ", ".join(
+                f"{k} {v / 2**20:.2f}" for k, v in
+                sorted(art["collective_breakdown_per_position"].items()))
+            + f"), {art['chips']} times that in all")
 
 
 def sharded_families(grid, dev) -> tuple[dict, dict, float]:
@@ -4016,7 +4083,8 @@ def report_case(what: str, r: dict) -> None:
            f"{r['step1_loss'][1]:.7f}" if "step1_loss" in r else "")
         + drops + f"; shardings kept; placed {r['placed_bytes']} bytes a "
         f"position = the dry run's parameters {d['params']} + optimizer "
-        f"state {d['opt_state']}; {r['s']:.1f} s (dry run "
+        f"state {d['opt_state']}; the dry run: "
+        + counted_bytes(d) + f"; {r['s']:.1f} s (dry run "
         f"{r['dryrun_s']:.1f} s)")
     if "step_ms" not in r:
         return
@@ -4037,6 +4105,239 @@ def report_case(what: str, r: dict) -> None:
         f"{d['grad_B'] / 2**30:.2f}, saved activations about "
         f"{d['saved_B_estimate'] / 2**30:.2f}), "
         f"{4 * d['per_position_B'] / 2**30:.2f} GiB for 4; {busy}")
+
+
+# ---------------------------------------------------------------- phase 15
+def step_ms(fn) -> tuple[float, object]:
+    """(ms between CUDA events on the caller's stream, ``fn()``)."""
+    ev = (torch.cuda.Event(enable_timing=True),
+          torch.cuda.Event(enable_timing=True))
+    ev[0].record()
+    got = fn()
+    ev[1].record()
+    ev[1].synchronize()
+    return ev[0].elapsed_time(ev[1]), got
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+def serve_counts(cfg, params, caches, mesh, prompt, feed, pos0) -> dict:
+    """``CollectiveCounter``'s bytes a position and kind of a partitioned
+    prefill and of its first decode step over ``mesh``: ``{"prefill":
+    ..., "decode": ...}``, each ``{position: {kind: bytes}}``."""
+    from repro_torch.launch.cost_analysis import CollectiveCounter
+    from repro_torch.serve.sharded_step import (decode_step_sharded,
+                                                prefill_sharded)
+
+    out = {}
+    with CollectiveCounter() as c:
+        prefill_sharded(cfg, params, prompt, caches, mesh)
+    out["prefill"] = c.by_position
+    with CollectiveCounter() as c:
+        decode_step_sharded(cfg, params, feed, caches, pos0, mesh)
+    out["decode"] = c.by_position
+    return out
+
+
+def serve_case(what: str, cfg, params, grid, dev, rows: int, prompt_len: int,
+               steps: int, dispatch) -> dict:
+    """One prefill and ``steps`` decode steps, one-device and on ``grid``,
+    teacher-forced with the one-device ``ServeEngine``'s tokens; each
+    step's logits held to the one-device step's, the collective bytes to
+    a meta grid's count of the same steps."""
+    from repro_torch.launch.cost_analysis import CollectiveCounter
+    from repro_torch.launch.mesh import FilterMesh
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.sharded_step import (decode_step_sharded,
+                                                prefill_sharded)
+    from repro_torch.sharding import rules as R
+    from repro_torch.sharding.placement import NamedSharding, device_put
+    from repro_torch.tree import tree_leaves, tree_map_with_path
+
+    out: dict = {"rows": rows, "prompt": prompt_len, "steps": steps}
+    rng = np.random.default_rng(15)
+    prompt = rng.integers(0, cfg.vocab, (rows, prompt_len)).astype(np.int32)
+    max_len = prompt_len + steps + 1
+    eng = ServeEngine(cfg, params, batch=rows, max_len=max_len,
+                      cache_dtype=torch.float32, device=dev)
+    t, toks = step_ms(lambda: eng.generate({"tokens": prompt}, steps + 1))
+    out["engine_ms"] = t
+    feed = [torch.as_tensor(toks[:, i:i + 1], device=dev)
+            for i in range(steps)]
+    prompt_t = {"tokens": torch.as_tensor(prompt, device=dev)}
+
+    # the one-device steps, timed, their logits kept on the card
+    want, one_ms = [], []
+    caches = T.init_cache(cfg, rows, max_len, dtype=torch.float32,
+                          device=dev)
+    with torch.inference_mode():
+        t, (lg, caches) = step_ms(lambda: T.prefill(cfg, params, prompt_t,
+                                                    caches))
+        one_ms.append(t)
+        want.append(lg)
+        for i in range(steps):
+            t, (lg, caches) = step_ms(lambda: T.decode_step(
+                cfg, params, feed[i], caches, prompt_len + i))
+            one_ms.append(t)
+            want.append(lg)
+        out["one_busy"] = device_busy_us(lambda: T.decode_step(
+            cfg, params, feed[0], caches, prompt_len))
+    del caches
+    torch.cuda.empty_cache()
+
+    def named(mesh, specs):
+        return tree_map_with_path(lambda _, s: NamedSharding(mesh, s), specs,
+                                  is_leaf=R.is_spec)
+    shapes = T.init_model(cfg, None)
+    placed = device_put(params, named(grid, R.param_specs(cfg, shapes,
+                                                          grid)))
+    caches = T.init_cache(cfg, rows, max_len, dtype=torch.float32,
+                          device=dev)
+    cspecs = named(grid, R.cache_specs(cfg, caches, grid))
+    pc = device_put(caches, cspecs)
+    del caches
+    first = grid.positions()[0]
+    out["position_bytes"] = sum(x.shards[first].numel()
+                                * x.shards[first].element_size()
+                                for x in tree_leaves((placed, pc)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, errs = [], []
+    with BranchLog(("_ep_stationary_parts", "_ep_shardmap_parts")) as taken:
+        with CollectiveCounter() as c:
+            t, (lg, _) = step_ms(lambda: prefill_sharded(cfg, placed,
+                                                         prompt_t, pc, grid))
+        card_counts = {"prefill": c.by_position}
+        ms.append(t)
+        errs.append(rel_err(lg, want[0]))
+        for i in range(steps):
+            with CollectiveCounter() as c:
+                t, (lg, _) = step_ms(lambda: decode_step_sharded(
+                    cfg, placed, feed[i], pc, prompt_len + i, grid))
+            if i == 0:
+                card_counts["decode"] = c.by_position
+            check(c.by_position == card_counts["decode"],
+                  f"{what}: decode step {i}'s collectives differ from the "
+                  f"first's")
+            ms.append(t)
+            errs.append(rel_err(lg, want[i + 1]))
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["errs"], out["ms"], out["one_ms"] = errs, ms, one_ms
+    worst = int(np.argmax(errs))
+    check(max(errs) <= SERVE_SHARDED_TOL,
+          f"{what}: step {worst}'s logits {errs[worst]:.3g} of the largest "
+          f"from the one-device step's (tolerance {SERVE_SHARDED_TOL})")
+    if dispatch is not None:
+        layers = T.n_stacked(params["layers"])
+        check(taken[:layers] == [dispatch] * layers
+              and set(taken[layers:]) == {"stationary"},
+              f"{what}: the dispatches taken {taken}")
+        out["taken"] = taken
+    out["busy"] = device_busy_us(lambda: decode_step_sharded(
+        cfg, placed, feed[0], pc, prompt_len, grid))
+    out["prefill_busy"] = device_busy_us(lambda: prefill_sharded(
+        cfg, placed, prompt_t, pc, grid))
+    del pc, placed
+    torch.cuda.empty_cache()
+
+    # the same steps' collectives on a meta grid of the same shape
+    meta = FilterMesh([["meta"] * MESH_LM_MODEL] * MESH_LM_DATA)
+    mc = T.init_cache(cfg, rows, max_len, dtype=torch.float32,
+                      device="meta")
+    t = time.perf_counter()
+    meta_counts = serve_counts(
+        cfg, device_put(shapes, named(meta, R.param_specs(cfg, shapes,
+                                                           meta))),
+        device_put(mc, named(meta, R.cache_specs(cfg, mc, meta))), meta,
+        {"tokens": torch.empty((rows, prompt_len), dtype=torch.int32,
+                               device="meta")},
+        torch.empty((rows, 1), dtype=torch.int32, device="meta"), prompt_len)
+    out["meta_s"] = time.perf_counter() - t
+    check(card_counts == meta_counts,
+          f"{what}: the card's collective bytes {card_counts} differ from "
+          f"the meta grid's {meta_counts}")
+    out["counts"] = card_counts
+    return out
+
+
+def report_serve(what: str, r: dict) -> None:
+    def kinds(counts):
+        mean: dict = {}
+        for row in counts.values():
+            for k, v in row.items():
+                mean[k] = mean.get(k, 0.0) + v / len(counts)
+        return ", ".join(f"{k} {v:.0f}" for k, v in sorted(mean.items()))
+
+    def busy(b):
+        return (f"{b[1]} kernels, busy {b[0] / 1e3:.2f} ms" if b
+                else "busy not measured (no device time in the trace)")
+    dec, one = r["ms"][1:], r["one_ms"][1:]
+    say(f"{what}: {r['rows']} x {r['prompt']} tokens, {r['steps']} decode "
+        f"steps fed the one-device ServeEngine's tokens ({r['engine_ms']:.1f}"
+        f" ms to generate them): logits within {max(r['errs']):.2e} of the "
+        f"one-device step's (prefill {r['errs'][0]:.2e}; tolerance "
+        f"{SERVE_SHARDED_TOL}); prefill {r['ms'][0]:.2f} ms (one device "
+        f"{r['one_ms'][0]:.2f}), decode {min(dec):.2f}-{max(dec):.2f} ms a "
+        f"step, median {float(np.median(dec)):.2f} (one device "
+        f"{float(np.median(one)):.2f}) (CUDA events); a sharded decode step "
+        f"{busy(r['busy'])}, the one-device step {busy(r['one_busy'])}, the "
+        f"sharded prefill {busy(r['prefill_busy'])} (torch.profiler); peak "
+        f"{r['peak_bytes'] / 2**30:.2f} GiB for the 4 positions and the "
+        f"one-device copy's steps, against {r['position_bytes'] / 2**30:.2f}"
+        f" GiB of parameters and caches a position; collective bytes a "
+        f"position (CollectiveCounter on the card = the meta grid's count, "
+        f"exactly: a consistency check): prefill {kinds(r['counts']['prefill'])}, decode "
+        f"{kinds(r['counts']['decode'])}"
+        + (f"; dispatches {r['taken']}" if "taken" in r else "")
+        + f"; meta count {r['meta_s']:.1f} s")
+
+
+def sharded_serve_phase(dev) -> dict:
+    """Phase 15: each of ``SERVE_SHARDED_CASES`` through
+    :func:`serve_case` on phase 13's grid of the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    grid = make_host_mesh(MESH_LM_MODEL,
+                          devices=[dev] * (MESH_LM_DATA * MESH_LM_MODEL))
+    say(f"phase 15: the partitioned prefill and decode on a {MESH_LM_DATA} x "
+        f"{MESH_LM_MODEL} grid of the card (float32, TF32 off)")
+    out: dict = {}
+    for key, arch, layers, over, prefills, steps in SERVE_SHARDED_CASES:
+        cfg = get_config(arch).with_(**over)
+        if layers:
+            cfg = cfg.with_(n_layers=layers)
+        t = time.perf_counter()
+        params = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0))
+        n_bytes = sum(x.numel() * x.element_size()
+                      for x in tree_leaves(params))
+        full = get_config(arch)
+        cf = f", capacity_factor {cfg.capacity_factor}" if over else ""
+        desc = (f"({key}) {arch} ({cfg.n_layers} of {full.n_layers} layers"
+                f"{', MLA' if cfg.mla else ''}, {n_bytes / 1e9:.2f} GB "
+                f"float32{cf})")
+        for rows, prompt_len, dispatch in prefills:
+            r = serve_case(desc, cfg, params, grid, dev, rows, prompt_len,
+                           steps, dispatch)
+            r["param_bytes"] = n_bytes
+            out[f"{key}/{rows}x{prompt_len}"] = r
+            report_serve(desc + (f", {dispatch}" if dispatch else ""), r)
+        del params
+        torch.cuda.empty_cache()
+        say(f"({key}) in {time.perf_counter() - t:.1f} s")
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"phase 15 in {out['phase_s']:.1f} s")
+    return out
 
 
 # ------------------------------------------------------------------- main
@@ -4090,10 +4391,18 @@ def main() -> int:
           f"phase 13 launched {mesh_lm['launches']}")
     # the sharded step's ingest launches K5 and K6, its steps none
     sharded_lm = sharded_step_phase(dev)
+    # the partitioned prefill and decode run no kernel of the table: its
+    # counts are read around it and must stay 0
+    reset_counts()
+    serve_lm = sharded_serve_phase(dev)
+    torch.cuda.synchronize()
+    serve_lm["launches"] = counts()
+    check(not any(serve_lm["launches"].values()),
+          f"phase 15 launched {serve_lm['launches']}")
 
     s = run["stats"]
     card = card_line()
-    say(f"phase 15: end to end on {card}: {len(run['payloads'])} documents, "
+    say(f"phase 16: end to end on {card}: {len(run['payloads'])} documents, "
         f"{run['n_bytes']} bytes in {run['e2e_s']:.3f} s = "
         f"{len(run['payloads']) / run['e2e_s']:.1f} docs/s, "
         f"{run['n_bytes'] / run['e2e_s'] / 1e6:.1f} MB/s (host clock around "
@@ -4146,6 +4455,10 @@ def main() -> int:
         f"{min(sharded_lm['c']['shardmap']['step_ms']):.1f} ms, " + ", ".join(
             f"{a} {min(r['step_ms']):.1f} ms ({r['tokens_per_s']:.1f} "
             f"tokens/s)" for a, r in sharded_lm["d"].items())
+        + "; the partitioned serving steps on the grid: " + ", ".join(
+            f"{k} decode {float(np.median(r['ms'][1:])):.1f} ms a step "
+            f"(one device {float(np.median(r['one_ms'][1:])):.1f})"
+            for k, r in serve_lm.items() if isinstance(r, dict) and "ms" in r)
         + f"; serve loop: sparse pub-sub p50 "
         f"{serving['sparse']['p50_ms']:.3f} / p99 "
         f"{serving['sparse']['p99_ms']:.3f} ms at "
@@ -4200,6 +4513,8 @@ def main() -> int:
         # (d)'s pipelines (K5, K6; the steps launch no kernel of the table)
         row["lm_sharded_launches"] = sum(
             v[key] for v in sharded_lm["launches"].values())
+        # phase 15: the partitioned prefill and decode (no filter kernel)
+        row["lm_serve_sharded_launches"] = serve_lm["launches"][key]
         row["mesh_positions"] = mesh["positions"]
         if key == "K2":
             row["mesh_position_ms"] = mesh["position_ms"]

@@ -32,16 +32,26 @@ this driver:
      (``tests/test_torch_cells_dryrun.py`` holds that equal to the full
      count);
    * ``model_flops`` and ``fits_h100_80g``: the position's bytes against
-     :data:`H100_80G_BYTES`.
-
-Not counted yet: the JAX dry run's ``collective_bytes``,
-``collective_breakdown`` and ``bytes_accessed``, which
-``launch/hlo_analysis.py`` reads from the HLO text XLA compiles (the
-port emits none).  The port writes its collectives out
-(:func:`~repro_torch.models.layers._psum`, ``_pmax``, ``_all_gather``),
-so their bytes a position and a step can be counted where they run, by
-``hlo_analysis.py``'s ring formulas (all-reduce ``2·b·(g-1)/g``,
-all-gather ``b·(g-1)/g``), and held against XLA's on the mini cells.
+     :data:`H100_80G_BYTES`;
+   * the JAX dry run's ``bytes_accessed``, ``collective_bytes`` and
+     ``collective_breakdown`` (global: a position's count times
+     ``chips``; XLA's ``collective_breakdown`` is a device's, the port's
+     ``collective_breakdown_per_position``) and their
+     ``*_per_position`` twins, from the cell's partitioned step run on
+     the mesh's meta positions under
+     :mod:`~repro_torch.launch.cost_analysis`'s counters: the sharded
+     train step's gradients (one microbatch, times ``grad_accum``) for a
+     train cell, :mod:`repro_torch.serve.sharded_step`'s prefill or
+     decode step for a serving cell of a decoder family.  A train cell
+     counts the gradient step (forward, backward and the gradients'
+     reductions to their blocks), not the optimizer update (ROADMAP item
+     14k), and says so in its ``collective_note``; its accessed bytes,
+     counted from the first position alone
+     (:func:`counting_mesh`), are an approximation of the mesh's mean
+     (autograd's sums into a block run at its holders: within 5% on the
+     mini cells of ``tests/test_torch_cost_analysis.py``).  A serving
+     cell of the ssm, hybrid or encdec family has no partitioned step yet
+     (ROADMAP item 14j): ``null`` there, and a ``collective_note``.
 
 Usage::
 
@@ -64,13 +74,13 @@ from torch.utils.flop_counter import FlopCounterMode
 from ..models import transformer as T
 from ..models.config import SHAPES, ModelConfig, ShapeSpec
 from ..sharding import rules as R
-from ..sharding.placement import NamedSharding
+from ..sharding.placement import NamedSharding, device_put
 from ..train.optimizer import make_optimizer
 from ..train.train_step import grads_and_metrics
-from ..tree import tree_leaves
+from ..tree import tree_leaves, tree_map_with_path
 from .cells import (Cell, batch_struct, decode_tokens_struct, dryrun_config,
                     enumerate_cells, model_flops, serve_batch_struct)
-from .mesh import make_production_mesh
+from .mesh import FilterMesh, make_production_mesh
 
 #: ``torch.cuda.get_device_properties(0).total_memory`` of an NVIDIA H100
 #: 80GB HBM3 (700.00 W power limit), as ``chip_smoke.py`` phase 14 reads it
@@ -198,6 +208,58 @@ def step_counts(cfg: ModelConfig, shape: ShapeSpec, rows: int, *,
     return float(counter.get_total_flops()), None
 
 
+def partitioned_counts(cell: Cell, mesh, cfg: ModelConfig) -> dict | None:
+    """``cost_analysis.analyze_step`` of the cell's partitioned step on
+    ``mesh`` (meta tensors placed by the rule specs), or ``None`` where
+    the port has no partitioned step (a serving cell of the ssm, hybrid
+    or encdec family).  The step runs on :func:`counting_mesh`: the
+    counts are the first position's."""
+    from ..serve import sharded_step as serve_step
+    from ..train import sharded_step as train_step
+    from .cost_analysis import analyze_step
+
+    shape = cell.shape
+    if shape.kind != "train" and cfg.family not in \
+            serve_step.DECODER_FAMILIES:
+        return None
+    mesh = counting_mesh(mesh)
+    _, args = build_cell(cell, mesh, cfg)
+    placed = {k: device_put(tree, _named(mesh, specs))
+              for k, (tree, specs) in args.items()
+              if k in ("params", "caches")}
+    if shape.kind == "train":
+        ga = max(cfg.grad_accum, 1)
+        micro = {k: v[:v.shape[0] // ga] for k, v in args["batch"][0].items()}
+        return analyze_step(lambda: train_step.grads_and_metrics(
+            cfg.with_(grad_accum=1), placed["params"], micro), mesh,
+            factor=ga)
+    if shape.kind == "prefill":
+        return analyze_step(lambda: serve_step.prefill_sharded(
+            cfg, placed["params"], args["batch"][0], placed["caches"],
+            mesh), mesh)
+    return analyze_step(lambda: serve_step.decode_step_sharded(
+        cfg, placed["params"], args["tokens"][0], placed["caches"],
+        shape.seq_len - 1, mesh), mesh)
+
+
+def counting_mesh(mesh):
+    """``mesh``'s axes and sizes on meta positions (a card grid's too),
+    seen from the first position where there are several: a meta mesh
+    is symmetric, so one position's counts are each position's
+    (``FilterMesh.first_position``)."""
+    def grid(dims):
+        return "meta" if not dims else [grid(dims[1:])
+                                        for _ in range(dims[0])]
+    meta = FilterMesh(grid(tuple(mesh.shape.values())),
+                      axis_names=mesh.axis_names)
+    return meta.first_position() if meta.size > 1 else meta
+
+
+def _named(mesh, specs):
+    return tree_map_with_path(lambda _, s: NamedSharding(mesh, s), specs,
+                              is_leaf=R.is_spec)
+
+
 def cell_bytes(cell: Cell, mesh, cfg: ModelConfig | None = None) -> dict:
     """One position's argument bytes, by argument and in all, and (train)
     its float32 gradient shards."""
@@ -251,6 +313,8 @@ def run_cell(cell: Cell, *, multi_pod: bool, measure: bool = True,
             else:
                 art["flops"], _ = step_counts(cfg, shape, shape.global_batch)
             art["flops_per_position"] = art["flops"] / chips  # even split
+            art.update(collective_fields(partitioned_counts(cell, mesh, cfg),
+                                         chips, shape.kind == "train"))
         art.update({
             "status": "ok",
             "estimate": "specs+saved" if measure and "saved_B_estimate"
@@ -267,6 +331,37 @@ def run_cell(cell: Cell, *, multi_pod: bool, measure: bool = True,
         art["traceback"] = traceback.format_exc()[-4000:]
         art["seconds"] = round(time.time() - t0, 1)
     return art
+
+
+#: a train cell's ``collective_note``
+TRAIN_NOTE = ("the gradient step: the optimizer update is not counted "
+              "(ROADMAP item 14k); bytes_accessed approximates the mesh's "
+              "mean from the first position")
+
+
+def collective_fields(counts: dict | None, chips: int,
+                      train: bool = False) -> dict:
+    """The artifact's accessed and collective bytes: global (a position's
+    times ``chips``, as the JAX dry run reports them) and a position's;
+    ``None`` and a note where the port has no partitioned step."""
+    if counts is None:
+        return {k: None for k in (
+            "bytes_accessed", "collective_bytes", "collective_breakdown",
+            "bytes_accessed_per_position", "collective_bytes_per_position",
+            "collective_breakdown_per_position")} | {
+            "collective_note": "no partitioned serving step for this "
+                               "family yet: ROADMAP item 14j"}
+    per = counts["collective_breakdown"]
+    note = {"collective_note": TRAIN_NOTE} if train else {}
+    return note | {
+        "bytes_accessed": counts["traffic_bytes_per_device"] * chips,
+        "collective_bytes": counts["collective_bytes_per_device"] * chips,
+        "collective_breakdown": {k: v * chips for k, v in per.items()},
+        "bytes_accessed_per_position": counts["traffic_bytes_per_device"],
+        "collective_bytes_per_position":
+            counts["collective_bytes_per_device"],
+        "collective_breakdown_per_position": per,
+    }
 
 
 def main() -> None:

@@ -109,7 +109,12 @@ class FilterMesh:
         return flat
 
     def positions(self) -> list[tuple[int, ...]]:
-        """Every position's index, in row-major order."""
+        """Every position's index the mesh runs, in row-major order: all
+        of :meth:`grid_positions` but on :meth:`first_position`'s view."""
+        return self.grid_positions()
+
+    def grid_positions(self) -> list[tuple[int, ...]]:
+        """Every position's index of the grid, in row-major order."""
         out = [()]
         for n in self._dims:
             out = [i + (j,) for i in out for j in range(n)]
@@ -181,8 +186,30 @@ class FilterMesh:
         with torch.cuda.stream(s):
             yield s
 
+    def first_position(self) -> "FilterMesh":
+        """This mesh seen from its first position alone: the same axes,
+        sizes and devices, one position.  A mesh of ``meta`` positions
+        is symmetric (every position runs the same ops on the same
+        shapes), so the dry run counts one position's work on it; its
+        collectives keep their groups' sizes (``layers._collect``), and
+        the blocks the other positions hold are read as new ``meta``
+        tensors (``placement.read_region``)."""
+        if any(d.type != "meta" for d in self._devices):
+            raise ValueError("first_position() is a view of a meta mesh")
+        view = FilterMesh.__new__(_FirstPosition)
+        view.__dict__.update(self.__dict__)
+        view._local = threading.local()
+        return view
+
     def __repr__(self) -> str:  # pragma: no cover
         return f"FilterMesh({self.shape}, devices={self._devices})"
+
+
+class _FirstPosition(FilterMesh):
+    """:meth:`FilterMesh.first_position`'s view."""
+
+    def positions(self) -> list[tuple[int, ...]]:
+        return [(0,) * len(self._dims)]
 
 
 def mesh_shape(n_devices: int, n_parts: int | None = None, *,

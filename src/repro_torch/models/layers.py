@@ -35,6 +35,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..sharding import counters as _counters
 from ..sharding.ctx import _mesh
 from .config import ModelConfig
 
@@ -204,66 +205,56 @@ def _chunks(l: int, chunk: int) -> int:
     return l // chunk if chunk and l > chunk and l % chunk == 0 else 1
 
 
-def attention(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
-              positions: torch.Tensor, causal: bool = True,
-              cache: Params | None = None, cache_pos: int | None = None,
-              kv_x: torch.Tensor | None = None,
-              window: int | None = None,
-              head_mask: torch.Tensor | None = None):
-    """GQA attention with optional KV cache and cross-attention.
-
-    cache: {"k","v"} (B, T, KV, dh); cache_pos: the current length (a
-    decode step writes its one token there, a prefill writes at 0).
-    ``head_mask`` replaces ``cfg``'s padded-head mask (a tensor-parallel
-    slice of the heads passes its part of the global one).
-    Returns (y, cache).
-    """
-    b, l, d = x.shape
-    h, kv, dh = cfg.n_heads_eff, cfg.n_kv_eff, cfg.d_head
+def attn_q(cfg: ModelConfig, p: Params, x: torch.Tensor,
+           positions: torch.Tensor, rope: bool) -> torch.Tensor:
+    """Attention's queries (b, l, h, dh) from ``p["wq"]``'s heads: the
+    bias, the q norm and, with ``rope``, the rotary embedding."""
     q = einsum("bld,dhk->blhk", x, p["wq"])
     if cfg.qkv_bias and "bq" in p:
         q = q + p["bq"]
-    is_cross = kv_x is not None
-    reuse_cross = is_cross and cache is not None and cache_pos is not None
-    if not reuse_cross:      # a cross decode step reads its prefill's k/v
-        k, v = _project_kv(cfg, p, x if kv_x is None else kv_x)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        if not reuse_cross:
-            k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    if not is_cross and cfg.rope:
+    if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
+    return q
+
+
+def attn_kv(cfg: ModelConfig, p: Params, kv_in: torch.Tensor,
+            positions: torch.Tensor, rope: bool):
+    """Attention's keys and values (:func:`_project_kv`), the k norm and,
+    with ``rope``, the rotary embedding on the keys."""
+    k, v = _project_kv(cfg, p, kv_in)
+    if cfg.qk_norm:
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if rope:
         k = apply_rope(k, positions, cfg.rope_theta)
+    return k, v
 
-    new_cache = None
-    if cache is not None and not is_cross:
-        off = cache_pos if l == 1 and cache_pos is not None else 0
-        k = _write(cache["k"], k, off)
-        v = _write(cache["v"], v, off)
-        new_cache = cache
-    elif reuse_cross:
-        k, v = cache["k"], cache["v"]
-        new_cache = cache
-    elif cache is not None:
-        # prefill: the cross cache takes the encoder output's k/v
-        # (this step attends with the uncast k/v, as the JAX layer does)
-        cache["k"].copy_(k)
-        cache["v"].copy_(v)
-        new_cache = cache
 
+def attend(cfg: ModelConfig, p: Params, q: torch.Tensor, k: torch.Tensor,
+           v: torch.Tensor, *, positions: torch.Tensor, causal: bool,
+           is_cross: bool = False, limit: int | None = None,
+           window: int | None = None,
+           head_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """GQA attention of queries ``q`` (b, l, h, dh) on keys and values
+    (b, t, kv, dh), then ``p["wo"]``: (b, l, d).  Keys at ``limit`` and
+    past it are masked (``None``: every key is valid); ``head_mask`` as
+    in :func:`attention`."""
+    b, l, h, dh = q.shape
+    kv = k.shape[2]
     t = k.shape[1]
     g = h // kv
     qg = q.reshape(b, l, kv, g, dh)
     scale = dh ** -0.5
+    dev = q.device
 
-    key_pos = torch.arange(t, device=x.device)
-    if cache is not None and not is_cross:
-        limit = (cache_pos + l) if cache_pos is not None else l
+    key_pos = torch.arange(t, device=dev)
+    if limit is not None:
         valid = key_pos[None, :] < limit
     else:
-        valid = torch.ones((1, t), dtype=torch.bool, device=x.device)
+        valid = torch.ones((1, t), dtype=torch.bool, device=dev)
 
-    def attend(qg_c, pos_c):
+    def attend_chunk(qg_c, pos_c):
         """(b, lc, kv, g, dh) queries → (b, lc, kv, g, dh) context, one
         (lc, t) score tile at a time."""
         lc = qg_c.shape[1]
@@ -282,15 +273,59 @@ def attention(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
 
     nc = _chunks(l, cfg.attn_chunk)
     if nc > 1:
-        ctx = torch.cat([attend(qc, pc) for qc, pc in zip(
+        ctx = torch.cat([attend_chunk(qc, pc) for qc, pc in zip(
             qg.chunk(nc, dim=1), positions.chunk(nc, dim=1))], dim=1)
     else:
-        ctx = attend(qg, positions)
+        ctx = attend_chunk(qg, positions)
     ctx = ctx.reshape(b, l, h, dh)
-    hm = _head_mask(cfg, x.device) if head_mask is None else head_mask
+    hm = _head_mask(cfg, dev) if head_mask is None else head_mask
     if hm is not None:
         ctx = ctx * hm[None, None, :, None].to(ctx.dtype)
-    y = einsum("blhk,hkd->bld", ctx, p["wo"])
+    return einsum("blhk,hkd->bld", ctx, p["wo"])
+
+
+def attention(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
+              positions: torch.Tensor, causal: bool = True,
+              cache: Params | None = None, cache_pos: int | None = None,
+              kv_x: torch.Tensor | None = None,
+              window: int | None = None,
+              head_mask: torch.Tensor | None = None):
+    """GQA attention with optional KV cache and cross-attention.
+
+    cache: {"k","v"} (B, T, KV, dh); cache_pos: the current length (a
+    decode step writes its one token there, a prefill writes at 0).
+    ``head_mask`` replaces ``cfg``'s padded-head mask (a tensor-parallel
+    slice of the heads passes its part of the global one).
+    Returns (y, cache).
+    """
+    l = x.shape[1]
+    is_cross = kv_x is not None
+    rope = not is_cross and cfg.rope
+    q = attn_q(cfg, p, x, positions, rope)
+    reuse_cross = is_cross and cache is not None and cache_pos is not None
+    if not reuse_cross:      # a cross decode step reads its prefill's k/v
+        k, v = attn_kv(cfg, p, x if kv_x is None else kv_x, positions, rope)
+
+    new_cache = None
+    limit = None
+    if cache is not None and not is_cross:
+        off = cache_pos if l == 1 and cache_pos is not None else 0
+        k = _write(cache["k"], k, off)
+        v = _write(cache["v"], v, off)
+        new_cache = cache
+        limit = (cache_pos + l) if cache_pos is not None else l
+    elif reuse_cross:
+        k, v = cache["k"], cache["v"]
+        new_cache = cache
+    elif cache is not None:
+        # prefill: the cross cache takes the encoder output's k/v
+        # (this step attends with the uncast k/v, as the JAX layer does)
+        cache["k"].copy_(k)
+        cache["v"].copy_(v)
+        new_cache = cache
+    y = attend(cfg, p, q, k, v, positions=positions, causal=causal,
+               is_cross=is_cross, limit=limit, window=window,
+               head_mask=head_mask)
     return y, new_cache
 
 
@@ -313,47 +348,41 @@ def init_mla(cfg: ModelConfig, gen: torch.Generator, lead=()) -> Params:
     }
 
 
-def mla_attention(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
-                  positions: torch.Tensor, cache: Params | None = None,
-                  cache_pos: int | None = None,
-                  absorbed: bool | None = None,
-                  head_mask: torch.Tensor | None = None):
-    """DeepSeek-V3 Multi-head Latent Attention.
-
-    The cache holds the compressed kv latent (B, T, kv_rank) and the shared
-    rope key (B, T, rope_dim).  ``absorbed`` folds w_uk into the query and
-    w_uv into the output (the decode form); it defaults to True for a
-    one-token step with a cache, False otherwise.  ``head_mask`` as in
-    :func:`attention`.
-    """
-    b, l, d = x.shape
-    h = cfg.n_heads_eff
-    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
-    if absorbed is None:
-        absorbed = l == 1 and cache is not None
-    scale = (dn + dr) ** -0.5
-
+def mla_q(cfg: ModelConfig, p: Params, x: torch.Tensor,
+          positions: torch.Tensor):
+    """MLA's queries over ``p["w_uq"]``'s heads: ``(q_nope, q_rope)``, the
+    rotary part rotated."""
+    dn = cfg.qk_nope_dim
     cq = rms_norm(matmul(x, p["w_dq"]), p["q_norm"], cfg.norm_eps)
     q = einsum("blr,rhk->blhk", cq, p["w_uq"])
-    q_nope, q_rope = q[..., :dn], q[..., dn:]
-    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    return q[..., :dn], apply_rope(q[..., dn:], positions, cfg.rope_theta)
 
+
+def mla_latent(cfg: ModelConfig, p: Params, x: torch.Tensor,
+               positions: torch.Tensor):
+    """MLA's cache entries: the normed kv latent (b, l, kv_rank) and the
+    shared rotary key (b, l, rope_dim)."""
     dkv = matmul(x, p["w_dkv"])
     c_kv = rms_norm(dkv[..., :cfg.kv_lora_rank], p["kv_norm"], cfg.norm_eps)
     k_rope = apply_rope(dkv[..., None, cfg.kv_lora_rank:], positions,
-                        cfg.rope_theta)[:, :, 0]          # (b, l, dr)
+                        cfg.rope_theta)[:, :, 0]
+    return c_kv, k_rope
 
-    new_cache = None
-    if cache is not None:
-        off = cache_pos if l == 1 and cache_pos is not None else 0
-        c_kv = _write(cache["c_kv"], c_kv, off)
-        k_rope = _write(cache["k_rope"], k_rope, off)
-        new_cache = cache
+
+def mla_attend(cfg: ModelConfig, p: Params, q_nope: torch.Tensor,
+               q_rope: torch.Tensor, c_kv: torch.Tensor,
+               k_rope: torch.Tensor, *, positions: torch.Tensor,
+               limit: int, absorbed: bool,
+               head_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """MLA's causal attention of the queries on the latents (b, t, ·),
+    keys at ``limit`` and past it masked, then ``p["wo"]``: (b, l, d).
+    ``absorbed`` folds w_uk into the query and w_uv into the output."""
+    b, l, h, _ = q_nope.shape
+    dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+    scale = (dn + dr) ** -0.5
     t = c_kv.shape[1]
-
-    key_pos = torch.arange(t, device=x.device)
-    limit = (cache_pos + l) if (cache is not None and cache_pos is not None) \
-        else l if cache is not None else t
+    dev = q_nope.device
+    key_pos = torch.arange(t, device=dev)
     valid = key_pos[None, :] < limit
 
     if not absorbed:
@@ -362,7 +391,7 @@ def mla_attention(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
         k_full = torch.cat([k_nope, k_rope[:, :, None, :].to(
             k_nope.dtype).expand(b, t, h, dr)], dim=-1)
 
-    def attend(qn_c, qr_c, pos_c):
+    def attend_chunk(qn_c, qr_c, pos_c):
         """Query-chunked MLA attention: (b, lc, h, ·) → (b, lc, h, dv)."""
         mask = ((key_pos[None, None, :] <= pos_c[..., None])
                 & valid[:, None, :])[:, None, :, :]        # (b,1,lc,t)
@@ -383,15 +412,46 @@ def mla_attention(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
 
     nc = _chunks(l, cfg.attn_chunk)
     if nc > 1:
-        ctx = torch.cat([attend(*xs) for xs in zip(
+        ctx = torch.cat([attend_chunk(*xs) for xs in zip(
             q_nope.chunk(nc, dim=1), q_rope.chunk(nc, dim=1),
             positions.chunk(nc, dim=1))], dim=1)
     else:
-        ctx = attend(q_nope, q_rope, positions)
-    hm = _head_mask(cfg, x.device) if head_mask is None else head_mask
+        ctx = attend_chunk(q_nope, q_rope, positions)
+    hm = _head_mask(cfg, dev) if head_mask is None else head_mask
     if hm is not None:
         ctx = ctx * hm[None, None, :, None].to(ctx.dtype)
-    y = einsum("blhv,hvd->bld", ctx, p["wo"])
+    return einsum("blhv,hvd->bld", ctx, p["wo"])
+
+
+def mla_attention(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
+                  positions: torch.Tensor, cache: Params | None = None,
+                  cache_pos: int | None = None,
+                  absorbed: bool | None = None,
+                  head_mask: torch.Tensor | None = None):
+    """DeepSeek-V3 Multi-head Latent Attention.
+
+    The cache holds the compressed kv latent (B, T, kv_rank) and the shared
+    rope key (B, T, rope_dim).  ``absorbed`` folds w_uk into the query and
+    w_uv into the output (the decode form); it defaults to True for a
+    one-token step with a cache, False otherwise.  ``head_mask`` as in
+    :func:`attention`.
+    """
+    l = x.shape[1]
+    if absorbed is None:
+        absorbed = l == 1 and cache is not None
+    q_nope, q_rope = mla_q(cfg, p, x, positions)
+    c_kv, k_rope = mla_latent(cfg, p, x, positions)
+
+    new_cache = None
+    if cache is not None:
+        off = cache_pos if l == 1 and cache_pos is not None else 0
+        c_kv = _write(cache["c_kv"], c_kv, off)
+        k_rope = _write(cache["k_rope"], k_rope, off)
+        new_cache = cache
+    limit = (cache_pos + l) if (cache is not None and cache_pos is not None) \
+        else l if cache is not None else c_kv.shape[1]
+    y = mla_attend(cfg, p, q_nope, q_rope, c_kv, k_rope, positions=positions,
+                   limit=limit, absorbed=absorbed, head_mask=head_mask)
     return y, new_cache
 
 
@@ -583,37 +643,61 @@ def _keep(stream, tensors) -> None:
 
 
 def _groups(mesh, axes: tuple) -> list[list[tuple]]:
-    """The positions in groups that differ only along ``axes``, each in
-    row-major order."""
+    """The grid's positions (:meth:`FilterMesh.grid_positions`) in groups
+    that differ only along ``axes``, each in row-major order."""
     groups: dict[tuple, list] = {}
-    for idx in mesh.positions():
+    for idx in mesh.grid_positions():
         key = tuple(i for a, i in zip(mesh.axis_names, idx) if a not in axes)
         groups.setdefault(key, []).append(idx)
     return list(groups.values())
 
 
-def _collect(mesh, parts: dict, axes: tuple, streams: bool, combine) -> dict:
+def _collect(mesh, parts: dict, axes: tuple, streams: bool, combine,
+             kind: str) -> dict:
     """Each group's partials (:func:`_groups`) copied to its first position
     and folded there by ``combine(list)``; the result copied back to every
-    position of the group."""
+    position of the group.  A position of the group that the mesh does
+    not run (:meth:`FilterMesh.first_position`'s view of a symmetric meta
+    mesh) stands in with the first's part, detached: its backward pass
+    is another position's work.  An active
+    :class:`~repro_torch.sharding.counters.CollectiveCounter` counts
+    it as one ``kind`` collective a group, at the result's bytes, and its
+    backward pass, where autograd takes one, as its transpose."""
     out = {}
+    counter = _counters.ACTIVE
+    traffic = (_counters.collective_traffic if _counters.TRAFFIC is not None
+               else contextlib.nullcontext)
+    g = int(np.prod([mesh.shape[a] for a in axes]))
     for group in _groups(mesh, axes):
-        root = group[0]
+        ran = [m for m in group if m in parts]
+        if not ran:
+            continue
+        root = ran[0]
         dev = mesh.device(root)
-        with _on(mesh, root, streams) as rs:
-            got = [parts[root]]
-            for m in group[1:]:
+        with _on(mesh, root, streams) as rs, traffic() as note:
+            got = []
+            for m in group:
+                if m == root or m not in parts:
+                    got.append(parts[root] if m == root
+                               else parts[root].detach())
+                    continue
                 if rs is not None:
                     rs.wait_stream(mesh.stream(m))
                     parts[m].record_stream(rs)
                 got.append(parts[m].to(dev))
             total = combine(got)
-        for m in group:
-            with _on(mesh, m, streams) as ms:
-                if ms is not None and m != root:
-                    ms.wait_stream(rs)
-                    total.record_stream(ms)
-                out[m] = total.to(mesh.device(m))
+            for m in ran:
+                with _on(mesh, m, streams) as ms:
+                    if ms is not None and m != root:
+                        ms.wait_stream(rs)
+                        total.record_stream(ms)
+                    out[m] = total.to(mesh.device(m))
+            if note is not None:
+                note(len(ran) * _counters.size(total))
+        if counter is not None:
+            counter.group(ran, kind, _counters.size(total), g)
+            if total.requires_grad:
+                counter.transposed(ran, kind, total, g)
     return out
 
 
@@ -623,13 +707,14 @@ def _psum(mesh, parts: dict, axes: tuple, streams: bool) -> dict:
     first position and added there in row-major order, and the sum is
     copied back to every position of the group."""
     return _collect(mesh, parts, axes, streams,
-                    lambda xs: functools.reduce(torch.add, xs))
+                    lambda xs: functools.reduce(torch.add, xs), "all-reduce")
 
 
 def _pmax(mesh, parts: dict, axes: tuple, streams: bool) -> dict:
     """``jax.lax.pmax`` over ``axes``, as :func:`_psum`."""
     return _collect(mesh, parts, axes, streams,
-                    lambda xs: functools.reduce(torch.maximum, xs))
+                    lambda xs: functools.reduce(torch.maximum, xs),
+                    "all-reduce")
 
 
 def _all_gather(mesh, parts: dict, axes: tuple, dim: int,
@@ -637,7 +722,7 @@ def _all_gather(mesh, parts: dict, axes: tuple, dim: int,
     """``jax.lax.all_gather(..., tiled=True)`` over ``axes``: each group's
     parts concatenated along ``dim`` in row-major order of the group."""
     return _collect(mesh, parts, axes, streams,
-                    lambda xs: torch.cat(xs, dim=dim))
+                    lambda xs: torch.cat(xs, dim=dim), "all-gather")
 
 
 def _join(mesh, parts: dict, streams: bool) -> dict:

@@ -1,6 +1,7 @@
 """Distribution of the LM substrate over a mesh of positions: the rule
-specs (:mod:`.rules`), the mesh context (:mod:`.ctx`) and trees placed on
-a mesh (:mod:`.placement`).
+specs (:mod:`.rules`), the mesh context (:mod:`.ctx`), trees placed on
+a mesh (:mod:`.placement`) and the hooks through which the placed layers
+report their collectives (:mod:`.counters`).
 
 Counterpart of ``src/repro/sharding/``.  Its ``compat.py`` is a shim over
 ``jax.shard_map``'s moving keyword arguments, a JAX-version concern with

@@ -24,9 +24,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
+import numpy as np
 import torch
 
 from ..tree import tree_leaves, tree_unflatten
+from . import counters as _counters
 from .rules import PartitionSpec
 
 
@@ -175,10 +177,19 @@ def is_placed(tree: Any) -> bool:
 def holders(leaf: PlacedTensor) -> dict[tuple, tuple]:
     """Each block of the leaf and the first position (row-major) that
     holds it."""
-    out: dict[tuple, tuple] = {}
-    for idx in leaf.sharding.mesh.positions():
-        out.setdefault(leaf.sharding.block(idx, leaf.ndim), idx)
-    return out
+    return dict(_holders(leaf.sharding, leaf.ndim))
+
+
+def _holders(sharding: NamedSharding, ndim: int) -> dict[tuple, tuple]:
+    """:func:`holders`, kept on the sharding (freed with it and its
+    mesh)."""
+    cache = vars(sharding).setdefault("_holders", {})
+    if ndim not in cache:
+        out: dict[tuple, tuple] = {}
+        for idx in sharding.mesh.positions():
+            out.setdefault(sharding.block(idx, ndim), idx)
+        cache[ndim] = out
+    return cache[ndim]
 
 
 def _full(sl, shape) -> tuple[slice, ...]:
@@ -198,20 +209,56 @@ def _full(sl, shape) -> tuple[slice, ...]:
     return tuple(out), drop
 
 
-def read_region(leaf: PlacedTensor, sl, device, by_block: dict | None = None
-                ) -> torch.Tensor:
+def read_region(leaf: PlacedTensor, sl, device, by_block: dict | None = None,
+                position: tuple | None = None) -> torch.Tensor:
     """The leaf's global index range ``sl`` (slices or ints, one a leading
     dimension) as one tensor on ``device``, cut from the blocks that
     cover it, each from ``by_block[block]`` (default: its first holder's
-    shard) and concatenated.  Differentiable when the blocks are."""
+    shard) and concatenated.  Differentiable when the blocks are.
+
+    ``position`` names the reading position: without ``by_block`` it
+    reads the block it holds from its own shard.  An active
+    :class:`~repro_torch.sharding.counters.CollectiveCounter` counts
+    the blocks it does not hold as an all-gather, and the gradient
+    autograd sums back into them as a reduce-scatter; the gradient of a
+    block it holds with other positions (a replicated block) as an
+    all-reduce over its holders.  On a mesh's
+    :meth:`~repro_torch.launch.mesh.FilterMesh.first_position` view, a
+    block no position of the view holds reads as a ``meta`` tensor of
+    its shape (a view of the position's own block where that takes a
+    gradient, so autograd does the same work)."""
     sl, drop = _full(sl, leaf.shape)
     local = leaf.sharding.shard_shape(leaf.shape)
+    first = _holders(leaf.sharding, leaf.ndim)
+    own = None if position is None else leaf.sharding.block(position,
+                                                              leaf.ndim)
     if by_block is None:
-        by_block = {b: leaf.shards[i] for b, i in holders(leaf).items()}
+        by_block = {b: leaf.shards[i] for b, i in first.items()}
+        if own is not None:
+            by_block[own] = leaf.shards[position]
+    counter = _counters.ACTIVE if position is not None else None
+    replicas = 1 if counter is None else leaf.sharding.mesh.size // int(
+        np.prod(leaf.sharding.parts(leaf.ndim)))
 
     def build(k: int, block: tuple, cut: tuple) -> torch.Tensor:
         if k == len(sl):
-            t = by_block[block][cut]
+            src = by_block.get(block)
+            if src is None:                  # first_position(): elsewhere
+                shape = [len(range(*c.indices(n))) for c, n in
+                         zip(cut, local)]
+                mine = next(iter(by_block.values()))
+                # a view of the position's own block, so that autograd
+                # takes its gradient as it takes a block's elsewhere
+                t = mine.as_strided(shape, [0] * len(shape)) \
+                    if mine.requires_grad else torch.empty(
+                        shape, dtype=leaf.dtype, device="meta")
+            else:
+                t = src[cut]
+            if counter is not None:
+                if block != own:
+                    counter.foreign_read(position, t)
+                elif t.requires_grad and replicas > 1:
+                    counter.replica_grad(position, t, replicas)
             return t if t.device == device else t.to(device)
         n, s = local[k], sl[k]
         pieces = [build(k + 1, block + (j,),

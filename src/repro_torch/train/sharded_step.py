@@ -118,8 +118,12 @@ class _Positions:
 
     def w(self, leaf: PlacedTensor, idx, *sl) -> torch.Tensor:
         """The global range ``sl`` of a parameter on a position's device,
-        from the live leaves (differentiable)."""
-        return read_region(leaf, sl, self.dev(idx), self.live[id(leaf)])
+        from the live leaves (differentiable), or, with no live leaves
+        (serving), each block from the position's own shard where it
+        holds it."""
+        return read_region(leaf, sl, self.dev(idx),
+                           None if self.live is None else self.live[id(leaf)],
+                           position=idx)
 
     def whole(self, tree, idx, pre=()):
         """Every leaf of ``tree`` whole (at layer ``pre``) on a position."""
@@ -147,22 +151,36 @@ class _Positions:
             p["wo"] = self.w(ap["wo"], idx, *pre, qs)
             return cfg.with_(n_heads=hl, n_kv_heads=hl, pad_heads_to=0), \
                 p, hm
-        kv = cfg.n_kv_eff
-        factor = kv // ap["wk"].shape[-2]
-        lo = m * hl // (cfg.n_heads_eff // kv)     # first kv_eff head read
-        ks = slice(lo // factor, (lo + kl - 1) // factor + 1)
-        cut = slice(lo - ks.start * factor, lo - ks.start * factor + kl)
         p["wq"] = self.w(ap["wq"], idx, *pre, slice(None), qs)
         p["wo"] = self.w(ap["wo"], idx, *pre, qs)
-        for k in ("wk", "wv"):
-            p[k] = self.w(ap[k], idx, *pre, slice(None), ks).repeat_interleave(
-                factor, dim=1)[:, cut]
         if "bq" in ap:
             p["bq"] = self.w(ap["bq"], idx, *pre, qs)
+        p.update(self.kv_weights(ap, pre, idx, *self.kv_read(idx)))
+        return cfg.with_(n_heads=hl, n_kv_heads=kl, pad_heads_to=0), p, hm
+
+    def kv_read(self, idx) -> tuple[int, int]:
+        """(first, count) of the ``n_kv_eff`` heads a position's query
+        heads read."""
+        kv = self.cfg.n_kv_eff
+        if self.heads is None:
+            return 0, kv
+        hl, kl = self.heads
+        return self.m(idx) * hl // (self.cfg.n_heads_eff // kv), kl
+
+    def kv_weights(self, ap: dict, pre: tuple, idx, lo: int, n: int) -> dict:
+        """The key and value projections (and biases) of the ``n_kv_eff``
+        heads ``[lo, lo + n)`` at layer ``pre``, stored heads repeated as
+        ``layers._project_kv`` repeats them."""
+        factor = self.cfg.n_kv_eff // ap["wk"].shape[-2]
+        ks = slice(lo // factor, (lo + n - 1) // factor + 1)
+        cut = slice(lo - ks.start * factor, lo - ks.start * factor + n)
+        p = {k: self.w(ap[k], idx, *pre, slice(None), ks).repeat_interleave(
+            factor, dim=1)[:, cut] for k in ("wk", "wv")}
+        if "bk" in ap:
             for k in ("bk", "bv"):
                 p[k] = self.w(ap[k], idx, *pre, ks).repeat_interleave(
                     factor, dim=0)[cut]
-        return cfg.with_(n_heads=hl, n_kv_heads=kl, pad_heads_to=0), p, hm
+        return p
 
     def mlp_weights(self, mp: dict, pre: tuple, idx, gelu: bool):
         """(parameters, split) of a position's ``d_ff`` slice of an MLP."""
@@ -188,13 +206,21 @@ class _Positions:
 
     def attn_block(self, ap: dict, ln: dict, pre: tuple, xs: dict,
                    positions: dict, causal: bool = True,
-                   kv: dict | None = None) -> dict:
+                   kv: dict | None = None, cache: dict | None = None,
+                   cache_pos: int | None = None) -> dict:
         """``x + attention(rms_norm(x, ln))`` over the positions, MLA where
         the config has it; ``kv`` holds each position's encoder output,
-        which cross-attention's keys and values read."""
+        which cross-attention's keys and values read.  ``cache`` (placed
+        ``k``/``v`` or ``c_kv``/``k_rope`` leaves, layer ``pre``) makes it
+        a serving step's causal self-attention (:meth:`cached_attention`)."""
         cfg = self.cfg
         h = self.norm(ln, xs, pre)
         aw = {idx: self.attn_weights(ap, pre, idx) for idx in self.pos}
+        if cache is not None:
+            parts = self.cached_attention(ap, pre, h, aw, positions, cache,
+                                          cache_pos)
+            return self.add(xs, self.psum(parts) if self.heads is not None
+                            else parts)
         parts = {}
         for idx in self.pos:
             acfg, p, hm = aw[idx]
@@ -211,6 +237,80 @@ class _Positions:
         return self.add(xs, self.psum(parts) if self.heads is not None
                         else parts)
 
+    def cached_attention(self, ap: dict, pre: tuple, h: dict, aw: dict,
+                         positions: dict, cache: dict,
+                         cache_pos: int | None) -> dict:
+        """Each position's partial of a serving step's attention at layer
+        ``pre`` (``layers.attention`` and ``mla_attention`` with a cache):
+        first every position computes the new entries of the cache block
+        it holds (its rows; the KV heads of its block, or MLA's whole
+        latent, cut to its block) and writes them into its own shard at
+        ``cache_pos`` (a prefill: at 0); then each reads the cache region
+        its query heads attend to (its rows, every time step; MLA's whole
+        latent), blocks it does not hold from their holders, and attends
+        with its heads, keys at the step's end and past it masked."""
+        cfg = self.cfg
+        i = pre[0]
+        l = h[self.pos[0]].shape[1]
+        off = cache_pos if l == 1 and cache_pos is not None else 0
+        limit = (cache_pos + l) if cache_pos is not None else l
+        names = ("c_kv", "k_rope") if cfg.mla else ("k", "v")
+        leaves = [cache[k] for k in names]
+        q, rows, written = {}, {}, set()
+        for idx in self.pos:
+            acfg, p, hm = aw[idx]
+            own = [x.sharding.slices(x.shape, idx) for x in leaves]
+            rows[idx] = own[0][1]
+            if own[0][1].stop - own[0][1].start != h[idx].shape[0]:
+                raise ValueError(f"position {idx}: {h[idx].shape[0]} rows, "
+                                 f"its cache block {own[0][1]}")
+            if not cfg.mla:
+                kl = own[0][3]
+                n = kl.stop - kl.start
+                kw = ({k: p[k] for k in ("wk", "wv", "bk", "bv") if k in p}
+                      if (kl.start, n) == self.kv_read(idx)
+                      else self.kv_weights(ap, pre, idx, kl.start, n))
+                kw.update({k: v for k, v in p.items() if k == "k_norm"})
+                kcfg = cfg.with_(n_heads=n, n_kv_heads=n, pad_heads_to=0)
+            with self.on(idx, *tree_leaves(p), hm):
+                if cfg.mla:
+                    q[idx] = L.mla_q(acfg, p, h[idx], positions[idx])
+                    new = L.mla_latent(acfg, p, h[idx], positions[idx])
+                    new = [t[..., o[3]] for t, o in zip(new, own)]
+                else:
+                    q[idx] = L.attn_q(acfg, p, h[idx], positions[idx],
+                                      cfg.rope)
+                    new = L.attn_kv(kcfg, kw, h[idx], positions[idx],
+                                    cfg.rope)
+                for x, t in zip(leaves, new):
+                    dst = x.shards[idx][i, :, off:off + l]
+                    key = (dst.device, dst.data_ptr(), tuple(dst.shape),
+                           dst.stride())
+                    if dst.device.type == "meta" or key not in written:
+                        written.add(key)
+                        dst.copy_(t)
+        L._join(self.mesh, {idx: x.shards[idx] for idx in self.pos
+                            for x in leaves}, self.streams)
+        parts = {}
+        for idx in self.pos:
+            acfg, p, hm = aw[idx]
+            region = (i, rows[idx], slice(None))
+            if not cfg.mla:
+                lo, n = self.kv_read(idx)
+                region = region + (slice(lo, lo + n),)
+            kv = [read_region(x, region, self.dev(idx), position=idx)
+                  for x in leaves]
+            with self.on(idx, *kv):
+                if cfg.mla:
+                    parts[idx] = L.mla_attend(
+                        acfg, p, *q[idx], *kv, positions=positions[idx],
+                        limit=limit, absorbed=l == 1, head_mask=hm)
+                else:
+                    parts[idx] = L.attend(
+                        acfg, p, q[idx], *kv, positions=positions[idx],
+                        causal=True, limit=limit, head_mask=hm)
+        return parts
+
     def ffn_block(self, fp: dict, ln: dict, pre: tuple, xs: dict, ffn: str,
                   gelu: bool = False) -> dict:
         """``x + f(rms_norm(x, ln))``, ``f`` the ``"moe"`` or the
@@ -220,11 +320,14 @@ class _Positions:
                         else self.mlp(fp, pre, h, gelu=gelu))
 
     def layer(self, lp: dict, i, xs: dict, positions: dict,
-              ffn: str) -> dict:
+              ffn: str, cache: dict | None = None,
+              cache_pos: int | None = None) -> dict:
         """One decoder layer (``_decoder_layer``) over the positions;
-        ``i`` indexes a stacked layer tree (``None``: unstacked)."""
+        ``i`` indexes a stacked layer tree (``None``: unstacked), and the
+        placed ``cache`` tree's layers where one is given."""
         pre = () if i is None else (i,)
-        xs = self.attn_block(lp["attn"], lp["ln1"], pre, xs, positions)
+        xs = self.attn_block(lp["attn"], lp["ln1"], pre, xs, positions,
+                             cache=cache, cache_pos=cache_pos)
         return self.ffn_block(lp[ffn], lp["ln2"], pre, xs, ffn,
                               gelu=self.cfg.mlp_gelu)
 
@@ -246,7 +349,11 @@ class _Positions:
         cfg, mesh = self.cfg, self.mesh
         first = self.pos[0]
         bl, d = hs[first].shape[1], hs[first].shape[2]
-        rows = {self.d(idx): hs[idx].shape[0] for idx in self.pos}
+        ran = {self.d(idx): hs[idx].shape[0] for idx in self.pos}
+        # a data position the mesh does not run (FilterMesh.first_position)
+        # has the first's rows: a meta mesh is symmetric
+        rows = {k: ran.get(k, ran[self.d(first)])
+                for k in range(self.dp_size)}
         n = sum(rows.values()) * bl
         own = {idx: hs[idx].reshape(-1, d) for idx in self.pos}
         start = {k: sum(rows[j] for j in range(k)) * bl for k in rows}
@@ -535,10 +642,17 @@ class _Positions:
         ``cfg.remat`` holds (the JAX model's ``jax.checkpoint``)."""
         return T._recomputed(fn, *args) if self.cfg.remat else fn(*args)
 
-    def stack(self, tree: dict, xs: dict, positions: dict, ffn: str) -> dict:
-        """A stacked tree of decoder layers (``_run_stack``)."""
+    def stack(self, tree: dict, xs: dict, positions: dict, ffn: str,
+              caches: dict | None = None,
+              cache_pos: int | None = None) -> dict:
+        """A stacked tree of decoder layers (``_run_stack``), over the
+        placed ``caches`` where given (serving: no recompute)."""
         for i in range(T.n_stacked(tree)):
-            xs = self.remat(self.layer, tree, i, xs, positions, ffn)
+            if caches is not None:
+                xs = self.layer(tree, i, xs, positions, ffn, caches,
+                                cache_pos)
+            else:
+                xs = self.remat(self.layer, tree, i, xs, positions, ffn)
         return xs
 
     def mamba_stack(self, params: dict, xs: dict, positions: dict) -> dict:

@@ -40,7 +40,10 @@ one-device step and the CPU grid's sharded step; mamba2, zamba2 and
 whisper's sharded step there, with the positions' streams on and off
 bit for bit; and the one-device ``train_loss`` under the grid's mesh
 context with ``remat``, whose recompute (in autograd's own thread) must
-take its forward's expert-parallel branch.  The file imports
+take its forward's expert-parallel branch.  The partitioned prefill and
+decode on that grid (dense, both expert-parallel dispatches, MLA, the VLM
+prefix) against the CPU grid's, with the collective bytes the card's
+steps count equal to a meta grid's count.  The file imports
 nothing of JAX, so it runs where only the port is installed.
 """
 import contextlib
@@ -1623,3 +1626,88 @@ def test_family_sharded_step_on_card_grid(cuda, no_tf32, name):
     assert [x.sharding for x in tree_leaves((p2, s2))] == before
     assert float(m["loss"]) == pytest.approx(float(one[1]["loss"]), rel=1e-5)
 
+
+
+#: (arch, overrides, rows, prompt tokens): capacity_factor 4 keeps both
+#: expert-parallel dispatches drop-free (2,080 tokens: the shard-map one)
+SERVE_SHARDED_ON_CARD = {
+    "qwen3-0.6b": ("qwen3-0.6b", {}, 4, 16),
+    "qwen3-moe-30b-a3b": ("qwen3-moe-30b-a3b", {"capacity_factor": 4.0},
+                          4, 16),
+    "qwen3-moe-shardmap": ("qwen3-moe-30b-a3b", {"capacity_factor": 4.0},
+                           4, 520),
+    "deepseek-v3-671b": ("deepseek-v3-671b", {"capacity_factor": 4.0},
+                         4, 16),
+    "internvl2-76b": ("internvl2-76b", {}, 4, 16),
+}
+
+
+@pytest.mark.parametrize("name", list(SERVE_SHARDED_ON_CARD))
+def test_sharded_serving_on_card_grid(cuda, no_tf32, name):
+    """The partitioned prefill and 3 decode steps on the 2 x 2 card grid,
+    each position on its own stream: every step's logits and the gathered
+    caches within 1e-5 of the CPU grid's, and ``CollectiveCounter``'s
+    bytes a position and kind on the card equal to a meta grid's count of
+    the same steps, exactly (a consistency check of one counting code;
+    ``tests/test_torch_cells_dryrun.py`` holds the counts to XLA's)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.cost_analysis import CollectiveCounter
+    from repro_torch.launch.mesh import FilterMesh, make_host_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.sharded_step import (decode_step_sharded,
+                                                prefill_sharded)
+    from repro_torch.sharding import rules as R
+    from repro_torch.sharding.placement import (NamedSharding, device_put,
+                                                gather)
+    from repro_torch.tree import tree_leaves, tree_map_with_path
+
+    arch, over, rows, seq = SERVE_SHARDED_ON_CARD[name]
+    cfg = get_config(arch, reduced=True, **over)
+    params = T.init_model(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (rows, seq)).astype(
+        np.int32)}
+    if cfg.family == "vlm":
+        batch["patches"] = rng.normal(
+            size=(rows, cfg.frontend_len, cfg.d_model)).astype(np.float32)
+    feed = rng.integers(0, cfg.vocab, (3, rows, 1)).astype(np.int32)
+    off = seq + (cfg.frontend_len if cfg.family == "vlm" else 0)
+
+    def run(dev, mesh):
+        def named(specs):
+            return tree_map_with_path(lambda _, s: NamedSharding(mesh, s),
+                                      specs, is_leaf=R.is_spec)
+        meta = dev == "meta"
+        p = T.init_model(cfg, None) if meta else _to(params, dev)
+        c = T.init_cache(cfg, rows, off + 4, dtype=torch.float32,
+                         device=dev)
+        p = device_put(p, named(R.param_specs(cfg, T.init_model(cfg, None),
+                                              mesh)))
+        c = device_put(c, named(R.cache_specs(cfg, c, mesh)))
+        b = {k: torch.empty(v.shape, dtype=torch.float32 if v.dtype ==
+                            np.float32 else torch.int32, device="meta")
+             if meta else v for k, v in batch.items()}
+        steps, counts = [], []
+        with CollectiveCounter() as counter:
+            lg, _ = prefill_sharded(cfg, p, b, c, mesh)
+        counts.append(counter.by_position)
+        steps.append((lg, [gather(x) for x in tree_leaves(c)]))
+        for i in range(3):
+            tok = torch.empty((rows, 1), dtype=torch.int32, device="meta") \
+                if meta else feed[i]
+            with CollectiveCounter() as counter:
+                lg, _ = decode_step_sharded(cfg, p, tok, c, off + i, mesh)
+            counts.append(counter.by_position)
+            steps.append((lg, [gather(x) for x in tree_leaves(c)]))
+        return steps, counts
+
+    card, card_counts = run(cuda, _card_grid(cuda))
+    host, _ = run("cpu", make_host_mesh(2, devices=["cpu"] * 4))
+    _, meta_counts = run("meta", FilterMesh([["meta"] * 2] * 2))
+    for (lg, caches), (hl, hc) in zip(card, host):
+        assert float((lg.cpu() - hl).abs().max() / hl.abs().max()) <= 1e-5
+        for a, b in zip(caches, hc):
+            assert float((a.cpu() - b).abs().max()
+                         / b.abs().max().clamp(min=1e-30)) <= 1e-5
+    assert card_counts == meta_counts
+    assert all(v for v in card_counts)
