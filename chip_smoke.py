@@ -371,33 +371,51 @@ SHARDED_MOE_BATCHES = ((4, 4, "stationary"), (4, 4096, "shardmap"))
 SHARDED_TIMED_STEPS = 2
 # (d) the ssm, hybrid and encdec families at their published widths on
 # the same grid and ingest: (arch, layers kept (0: all; encdec: each
-# stack), rows, tokens a row, overrides); mamba2-780m whole, its 48
-# layers under remat, 2 x 2,048 tokens (8 SSD chunks of 256 a row);
-# zamba2-7b, 12 of its 81 layers (the shared attention block after
-# layers 5 and 11), 4 x 2,048 tokens in its 2 microbatches; whisper-large-v3,
-# 8 of its 32 encoder and 8 of its 32 decoder layers, 4 x 448 tokens and
-# 1,500 frames a row drawn from seed 0 (the conv frontend is a stub)
+# stack), rows, tokens a row, overrides); mamba2-780m, 24 of its 48
+# layers (cut to make room for phase 15's families) under remat, 2 x 2,048
+# tokens (8 SSD chunks of 256 a row; at 12 layers the float32 sums of
+# conv_bc's gradient, whose terms cancel, part from the one-device
+# step's by more than the bound allows); zamba2-7b, 12 of its 81 layers
+# (the shared attention block after layers 5 and 11), 4 x 2,048 tokens
+# in its 2 microbatches (at 4 x 1,024 zx_proj's gradient parts from the
+# one-device step's by more than the bound allows, as conv_bc's above);
+# whisper-large-v3, 8 of its 32 encoder and 8 of its 32 decoder layers,
+# 4 x 448 tokens and 1,500 frames a row drawn from seed 0 (the conv
+# frontend is a stub)
 SHARDED_FAMILY_CASES = (
-    ("mamba2-780m", 0, 2, 2048, {"remat": True}),
+    ("mamba2-780m", 24, 2, 2048, {"remat": True}),
     ("zamba2-7b", 12, 4, 2048, {}),
     ("whisper-large-v3", 8, 4, 448, {}),
 )
 
 # phase 15, the partitioned prefill and decode on phase 13's grid: (name,
-# arch, layers kept (0: all), overrides, prefill cases (rows, prompt
-# tokens, the prefill's EP dispatch), decode steps); teacher-forced with
-# the one-device ServeEngine's greedy tokens; the whole phase takes about
-# 60-120 s of its 250 s budget (no float64 reference, no backward pass)
+# arch, layers kept (0: all; encdec: each stack), overrides, prefill cases
+# (rows, prompt tokens, the prefill's EP dispatch, the cache's length:
+# None for the prompt and the steps), decode steps); teacher-forced with
+# the one-device ServeEngine's greedy tokens.  (d) mamba2-780m whole; (e)
+# zamba2-7b, 12 of its 81 layers (the shared block after layers 5 and
+# 11, its cache's 2 invocations); (f) whisper-large-v3, 8 encoder and 8
+# decoder layers, 1,500 frames a row from seed 15 (the conv frontend is a
+# stub); (g) zamba2-7b's 12 layers on one row, whose 8,192-token cache
+# the data positions split over time (the context-parallel layout of
+# long_500k): the 6,144-token prompt fills both time blocks, the decode
+# steps write and attend in the second
 SERVE_SHARDED_CASES = (
-    ("a", LM_ARCH, 0, {}, ((8, 128, None),), 32),
+    ("a", LM_ARCH, 0, {}, ((8, 128, None, None),), 32),
     ("b", MOE_ARCH, 2, {"capacity_factor": 16.0},
-     ((8, 128, "stationary"), (4, 640, "shardmap")), 8),
-    ("c", "deepseek-v3-671b", 3, {}, ((8, 128, None),), 8),
+     ((8, 128, "stationary", None), (4, 640, "shardmap", None)), 8),
+    ("c", "deepseek-v3-671b", 3, {}, ((8, 128, None, None),), 8),
+    ("d", "mamba2-780m", 0, {}, ((8, 128, None, None),), 32),
+    ("e", "zamba2-7b", 12, {}, ((8, 128, None, None),), 8),
+    ("f", "whisper-large-v3", 8, {}, ((8, 64, None, None),), 8),
+    ("g", "zamba2-7b", 12, {}, ((1, 6144, None, 8192),), 8),
 )
 SERVE_SHARDED_TOL = 2e-4
 # the 14(a) serving cells whose partitioned steps' bytes are counted
 SHARDED_COUNT_CELLS = (("qwen3-0.6b", "prefill_32k"),
-                       ("qwen3-0.6b", "decode_32k"))
+                       ("qwen3-0.6b", "decode_32k"),
+                       ("zamba2-7b", "long_500k"),
+                       ("whisper-large-v3", "decode_32k"))
 
 # card peaks (H100 SXM data sheet): HBM bytes/s, the 32-bit non-tensor
 # rate, which bounds the kernels' integer bit operations and K6's float32
@@ -2569,8 +2587,9 @@ def device_busy_us(fn) -> tuple[float, int, list] | None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # the card's activity alone: the busy time reads only its kernels,
+    # and recording every host op too slows the profiled call
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -4143,11 +4162,13 @@ def serve_counts(cfg, params, caches, mesh, prompt, feed, pos0) -> dict:
 
 
 def serve_case(what: str, cfg, params, grid, dev, rows: int, prompt_len: int,
-               steps: int, dispatch) -> dict:
+               steps: int, dispatch, cache_len: int | None = None) -> dict:
     """One prefill and ``steps`` decode steps, one-device and on ``grid``,
     teacher-forced with the one-device ``ServeEngine``'s tokens; each
     step's logits held to the one-device step's, the collective bytes to
-    a meta grid's count of the same steps."""
+    a meta grid's count of the same steps.  An encoder-decoder's prompt
+    carries ``frames`` drawn from the case's seed; ``cache_len`` sets the
+    caches' length (default: the prompt and the steps)."""
     from repro_torch.launch.cost_analysis import CollectiveCounter
     from repro_torch.launch.mesh import FilterMesh
     from repro_torch.models import transformer as T
@@ -4156,19 +4177,26 @@ def serve_case(what: str, cfg, params, grid, dev, rows: int, prompt_len: int,
                                                 prefill_sharded)
     from repro_torch.sharding import rules as R
     from repro_torch.sharding.placement import NamedSharding, device_put
-    from repro_torch.tree import tree_leaves, tree_map_with_path
+    from repro_torch.tree import (tree_flatten_with_path, tree_leaves,
+                                  tree_map_with_path)
 
     out: dict = {"rows": rows, "prompt": prompt_len, "steps": steps}
     rng = np.random.default_rng(15)
-    prompt = rng.integers(0, cfg.vocab, (rows, prompt_len)).astype(np.int32)
-    max_len = prompt_len + steps + 1
+    prompt = {"tokens": rng.integers(0, cfg.vocab, (rows, prompt_len)).astype(
+        np.int32)}
+    if cfg.family == "encdec":
+        prompt["frames"] = rng.normal(size=(rows, cfg.frontend_len,
+                                            cfg.d_model)).astype(np.float32)
+    max_len = cache_len or prompt_len + steps + 1
+    out["cache_len"] = max_len
+    out["frames"] = cfg.frontend_len if cfg.family == "encdec" else 0
     eng = ServeEngine(cfg, params, batch=rows, max_len=max_len,
                       cache_dtype=torch.float32, device=dev)
-    t, toks = step_ms(lambda: eng.generate({"tokens": prompt}, steps + 1))
+    t, toks = step_ms(lambda: eng.generate(prompt, steps + 1))
     out["engine_ms"] = t
     feed = [torch.as_tensor(toks[:, i:i + 1], device=dev)
             for i in range(steps)]
-    prompt_t = {"tokens": torch.as_tensor(prompt, device=dev)}
+    prompt_t = {k: torch.as_tensor(v, device=dev) for k, v in prompt.items()}
 
     # the one-device steps, timed, their logits kept on the card
     want, one_ms = [], []
@@ -4200,6 +4228,13 @@ def serve_case(what: str, cfg, params, grid, dev, rows: int, prompt_len: int,
     cspecs = named(grid, R.cache_specs(cfg, caches, grid))
     pc = device_put(caches, cspecs)
     del caches
+    if rows % MESH_LM_DATA:
+        # the context-parallel layout: attention's caches split over time
+        split = [x.sharding.spec for p, x in tree_flatten_with_path(pc)
+                 if p[-1] in ("k", "v")]
+        check(split and all(tuple(sp)[2] == "data" for sp in split),
+              f"{what}: {rows} rows, attention's caches placed {split}")
+        out["layout"] = str(split[0])
     first = grid.positions()[0]
     out["position_bytes"] = sum(x.shards[first].numel()
                                 * x.shards[first].element_size()
@@ -4213,7 +4248,10 @@ def serve_case(what: str, cfg, params, grid, dev, rows: int, prompt_len: int,
                                                          prompt_t, pc, grid))
         card_counts = {"prefill": c.by_position}
         ms.append(t)
-        errs.append(rel_err(lg, want[0]))
+        # the real vocabulary: a padded one's logits are -1e30 on both
+        # sides, and would set the scale of the relative error
+        v = cfg.vocab
+        errs.append(rel_err(lg[..., :v], want[0][..., :v]))
         for i in range(steps):
             with CollectiveCounter() as c:
                 t, (lg, _) = step_ms(lambda: decode_step_sharded(
@@ -4224,7 +4262,7 @@ def serve_case(what: str, cfg, params, grid, dev, rows: int, prompt_len: int,
                   f"{what}: decode step {i}'s collectives differ from the "
                   f"first's")
             ms.append(t)
-            errs.append(rel_err(lg, want[i + 1]))
+            errs.append(rel_err(lg[..., :v], want[i + 1][..., :v]))
     out["peak_bytes"] = torch.cuda.max_memory_allocated()
     out["errs"], out["ms"], out["one_ms"] = errs, ms, one_ms
     worst = int(np.argmax(errs))
@@ -4253,8 +4291,8 @@ def serve_case(what: str, cfg, params, grid, dev, rows: int, prompt_len: int,
         cfg, device_put(shapes, named(meta, R.param_specs(cfg, shapes,
                                                            meta))),
         device_put(mc, named(meta, R.cache_specs(cfg, mc, meta))), meta,
-        {"tokens": torch.empty((rows, prompt_len), dtype=torch.int32,
-                               device="meta")},
+        {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+         for k, v in prompt_t.items()},
         torch.empty((rows, 1), dtype=torch.int32, device="meta"), prompt_len)
     out["meta_s"] = time.perf_counter() - t
     check(card_counts == meta_counts,
@@ -4276,7 +4314,9 @@ def report_serve(what: str, r: dict) -> None:
         return (f"{b[1]} kernels, busy {b[0] / 1e3:.2f} ms" if b
                 else "busy not measured (no device time in the trace)")
     dec, one = r["ms"][1:], r["one_ms"][1:]
-    say(f"{what}: {r['rows']} x {r['prompt']} tokens, {r['steps']} decode "
+    say(f"{what}: {r['rows']} x {r['prompt']} tokens"
+        + (f" and {r['frames']} frames" if r.get("frames") else "")
+        + f", a {r['cache_len']}-token cache, {r['steps']} decode "
         f"steps fed the one-device ServeEngine's tokens ({r['engine_ms']:.1f}"
         f" ms to generate them): logits within {max(r['errs']):.2e} of the "
         f"one-device step's (prefill {r['errs'][0]:.2e}; tolerance "
@@ -4293,6 +4333,8 @@ def report_serve(what: str, r: dict) -> None:
         f"exactly: a consistency check): prefill {kinds(r['counts']['prefill'])}, decode "
         f"{kinds(r['counts']['decode'])}"
         + (f"; dispatches {r['taken']}" if "taken" in r else "")
+        + (f"; attention's caches placed {r['layout']} (time over data)"
+           if "layout" in r else "")
         + f"; meta count {r['meta_s']:.1f} s")
 
 
@@ -4316,19 +4358,24 @@ def sharded_serve_phase(dev) -> dict:
     for key, arch, layers, over, prefills, steps in SERVE_SHARDED_CASES:
         cfg = get_config(arch).with_(**over)
         if layers:
-            cfg = cfg.with_(n_layers=layers)
+            cfg = cfg.with_(n_layers=layers, **(
+                {"n_enc_layers": layers} if cfg.n_enc_layers else {}))
         t = time.perf_counter()
         params = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0))
         n_bytes = sum(x.numel() * x.element_size()
                       for x in tree_leaves(params))
         full = get_config(arch)
         cf = f", capacity_factor {cfg.capacity_factor}" if over else ""
-        desc = (f"({key}) {arch} ({cfg.n_layers} of {full.n_layers} layers"
+        depth = (f"{cfg.n_enc_layers} + {cfg.n_layers} of "
+                 f"{full.n_enc_layers} + {full.n_layers} layers"
+                 if cfg.n_enc_layers else
+                 f"{cfg.n_layers} of {full.n_layers} layers")
+        desc = (f"({key}) {arch} ({depth}"
                 f"{', MLA' if cfg.mla else ''}, {n_bytes / 1e9:.2f} GB "
                 f"float32{cf})")
-        for rows, prompt_len, dispatch in prefills:
+        for rows, prompt_len, dispatch, cache_len in prefills:
             r = serve_case(desc, cfg, params, grid, dev, rows, prompt_len,
-                           steps, dispatch)
+                           steps, dispatch, cache_len)
             r["param_bytes"] = n_bytes
             out[f"{key}/{rows}x{prompt_len}"] = r
             report_serve(desc + (f", {dispatch}" if dispatch else ""), r)

@@ -39,19 +39,17 @@ this driver:
      ``collective_breakdown_per_position``) and their
      ``*_per_position`` twins, from the cell's partitioned step run on
      the mesh's meta positions under
-     :mod:`~repro_torch.launch.cost_analysis`'s counters: the sharded
-     train step's gradients (one microbatch, times ``grad_accum``) for a
-     train cell, :mod:`repro_torch.serve.sharded_step`'s prefill or
-     decode step for a serving cell of a decoder family.  A train cell
-     counts the gradient step (forward, backward and the gradients'
-     reductions to their blocks), not the optimizer update (ROADMAP item
-     14k), and says so in its ``collective_note``; its accessed bytes,
-     counted from the first position alone
+     :mod:`~repro_torch.launch.cost_analysis`'s counters: for a train
+     cell the whole step, the sharded train step's gradients (one
+     microbatch, times ``grad_accum``), the gradient norm and the
+     optimizer's update on the placed trees (its folds over blocks held
+     at other positions); for a serving cell of every family
+     :mod:`repro_torch.serve.sharded_step`'s prefill or decode step.  A
+     train cell's accessed bytes, counted from the first position alone
      (:func:`counting_mesh`), are an approximation of the mesh's mean
      (autograd's sums into a block run at its holders: within 5% on the
-     mini cells of ``tests/test_torch_cost_analysis.py``).  A serving
-     cell of the ssm, hybrid or encdec family has no partitioned step yet
-     (ROADMAP item 14j): ``null`` there, and a ``collective_note``.
+     mini cells of ``tests/test_torch_cost_analysis.py``), and its
+     ``collective_note`` says so.
 
 Usage::
 
@@ -208,31 +206,40 @@ def step_counts(cfg: ModelConfig, shape: ShapeSpec, rows: int, *,
     return float(counter.get_total_flops()), None
 
 
-def partitioned_counts(cell: Cell, mesh, cfg: ModelConfig) -> dict | None:
+def partitioned_counts(cell: Cell, mesh, cfg: ModelConfig) -> dict:
     """``cost_analysis.analyze_step`` of the cell's partitioned step on
-    ``mesh`` (meta tensors placed by the rule specs), or ``None`` where
-    the port has no partitioned step (a serving cell of the ssm, hybrid
-    or encdec family).  The step runs on :func:`counting_mesh`: the
-    counts are the first position's."""
+    ``mesh`` (meta tensors placed by the rule specs): a train cell's
+    whole step (one microbatch's gradients times ``grad_accum``, then the
+    gradient norm and the optimizer's update on the placed trees, once),
+    a serving cell's prefill or decode step.  The step runs on
+    :func:`counting_mesh`: the counts are the first position's."""
     from ..serve import sharded_step as serve_step
     from ..train import sharded_step as train_step
+    from ..train.optimizer import global_norm
     from .cost_analysis import analyze_step
 
     shape = cell.shape
-    if shape.kind != "train" and cfg.family not in \
-            serve_step.DECODER_FAMILIES:
-        return None
     mesh = counting_mesh(mesh)
     _, args = build_cell(cell, mesh, cfg)
     placed = {k: device_put(tree, _named(mesh, specs))
               for k, (tree, specs) in args.items()
-              if k in ("params", "caches")}
+              if k in ("params", "caches", "opt_state")}
     if shape.kind == "train":
         ga = max(cfg.grad_accum, 1)
         micro = {k: v[:v.shape[0] // ga] for k, v in args["batch"][0].items()}
-        return analyze_step(lambda: train_step.grads_and_metrics(
-            cfg.with_(grad_accum=1), placed["params"], micro), mesh,
-            factor=ga)
+        got = {}
+
+        def grads():
+            got["grads"], _ = train_step.grads_and_metrics(
+                cfg.with_(grad_accum=1), placed["params"], micro)
+
+        def update():
+            global_norm(got["grads"])
+            make_optimizer(cfg.optimizer).update(
+                got["grads"], placed["opt_state"], placed["params"], 0)
+
+        return _added(analyze_step(grads, mesh, factor=ga),
+                      analyze_step(update, mesh))
     if shape.kind == "prefill":
         return analyze_step(lambda: serve_step.prefill_sharded(
             cfg, placed["params"], args["batch"][0], placed["caches"],
@@ -240,6 +247,16 @@ def partitioned_counts(cell: Cell, mesh, cfg: ModelConfig) -> dict | None:
     return analyze_step(lambda: serve_step.decode_step_sharded(
         cfg, placed["params"], args["tokens"][0], placed["caches"],
         shape.seq_len - 1, mesh), mesh)
+
+
+def _added(a: dict, b: dict) -> dict:
+    """Two ``analyze_step`` counts of one step's parts, added."""
+    out = {k: a[k] + b[k] for k in a if k != "collective_breakdown"}
+    kinds = a["collective_breakdown"].keys() | b["collective_breakdown"]
+    out["collective_breakdown"] = {
+        k: a["collective_breakdown"].get(k, 0.0)
+        + b["collective_breakdown"].get(k, 0.0) for k in sorted(kinds)}
+    return out
 
 
 def counting_mesh(mesh):
@@ -334,23 +351,14 @@ def run_cell(cell: Cell, *, multi_pod: bool, measure: bool = True,
 
 
 #: a train cell's ``collective_note``
-TRAIN_NOTE = ("the gradient step: the optimizer update is not counted "
-              "(ROADMAP item 14k); bytes_accessed approximates the mesh's "
-              "mean from the first position")
+TRAIN_NOTE = ("the whole step, the optimizer update included; "
+              "bytes_accessed approximates the mesh's mean from the first "
+              "position")
 
 
-def collective_fields(counts: dict | None, chips: int,
-                      train: bool = False) -> dict:
+def collective_fields(counts: dict, chips: int, train: bool = False) -> dict:
     """The artifact's accessed and collective bytes: global (a position's
-    times ``chips``, as the JAX dry run reports them) and a position's;
-    ``None`` and a note where the port has no partitioned step."""
-    if counts is None:
-        return {k: None for k in (
-            "bytes_accessed", "collective_bytes", "collective_breakdown",
-            "bytes_accessed_per_position", "collective_bytes_per_position",
-            "collective_breakdown_per_position")} | {
-            "collective_note": "no partitioned serving step for this "
-                               "family yet: ROADMAP item 14j"}
+    times ``chips``, as the JAX dry run reports them) and a position's."""
     per = counts["collective_breakdown"]
     note = {"collective_note": TRAIN_NOTE} if train else {}
     return note | {

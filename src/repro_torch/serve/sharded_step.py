@@ -5,12 +5,11 @@ Counterpart of what ``jax.jit`` makes of ``T.prefill`` and
 csh, repl)`` and ``out_shardings=(None, csh)`` on a mesh
 (``src/repro/launch/dryrun.py:100-128``): XLA partitions the JAX steps
 by the parameters' and the caches' specs.  The port has no partitioner,
-so this module writes the partitioned steps out for the decoder families
-(dense, moe, vlm; attention's ``k``/``v`` caches and MLA's
-``c_kv``/``k_rope``), over the sharded train step's forward
-(:class:`repro_torch.train.sharded_step._Positions`), every position
-driven from the calling thread, each on a CUDA stream of its own (off
-the card one after another).
+so this module writes the partitioned steps out, for every family
+(dense, moe, vlm, ssm, hybrid, encdec), over the sharded train step's
+forward (:class:`repro_torch.train.sharded_step._Positions`), every
+position driven from the calling thread, each on a CUDA stream of its
+own (off the card one after another).
 
 Storage follows the specs, compute follows the layer kind:
 
@@ -19,24 +18,36 @@ Storage follows the specs, compute follows the layer kind:
   layer: its query heads, the vocabulary of the embedding and of the
   unembedding, ``d_ff`` of the MLP, the experts through the
   expert-parallel dispatch the JAX layer picks at the step's token
-  count (a decode step's few tokens: weights-stationary);
+  count (a decode step's few tokens: weights-stationary), Mamba2's SSM
+  heads with B and C whole, and an encoder-decoder's encoder over its
+  rows of ``frames``;
 * a position's cache block is its rows and its ``"model"`` slice of the
-  KV heads (or of MLA's latent): it computes that block's new entries
-  and writes them into its own shard, at the step's position (a prefill
-  at 0), never into a tensor another position reads; then it reads the
-  region its query heads attend to with ``read_region``, blocks it does
-  not hold (MLA's latent, split over ``"model"``) from their holders;
+  KV heads (or of MLA's latent, or of the Mamba2 states' heads and
+  channels): it computes that block's new entries and writes them into
+  its own shard, at the step's position (a prefill at 0; the hybrid's
+  shared attention block at its invocation's cache layer; a prefill's
+  cross-attention cache and ``enc_out`` once), never into a tensor
+  another position reads; it reads the states it needs with
+  ``read_region``, blocks it does not hold (MLA's latent, Mamba2's
+  ``conv_bc``, which the specs split over ``"model"`` and every head
+  reads whole) from their holders;
 * row-parallel products and the vocab-parallel lookup end in a sum over
   ``"model"`` (``layers._psum``), the MoE in its dispatch's sums.
+
+A batch the data positions do not divide (``long_500k``'s one row) takes
+the context-parallel layout ``cache_specs`` gives it: no cache leaf
+splits its rows, every data position computes every row, a ``k``/``v``
+cache split over time on ``"data"`` is written at the holder of each
+token's time block and attended block by block, the blocks' softmax
+partials combined over ``"data"`` (``_Positions.attend_blocks``).
+Under any other layout such a batch raises ``ValueError``, as do the
+layouts no cell of the zoo runs (an MLA cache split over time, a MoE
+layer on rows every data position repeats).
 
 The logits of the last position come back whole, one tensor on the
 first position's device, as ``out_shardings=None`` hands the caller a
 whole array; the caches come back placed by their specs, written in
-place.  The ssm, hybrid and encdec families have no partitioned serving
-step yet (ROADMAP item 14j): both functions raise
-``NotImplementedError`` for them, and for a cache split over time (the
-context-parallel layout of a batch the data axes do not divide), rather
-than run the one-device step.
+place.
 """
 from __future__ import annotations
 
@@ -50,19 +61,16 @@ from ..models.config import ModelConfig
 from ..sharding.ctx import mesh_context
 from ..sharding.placement import PlacedTensor
 from ..train.sharded_step import _Positions
-from ..tree import tree_leaves
-
-DECODER_FAMILIES = ("dense", "moe", "vlm")
-TODO = ("the partitioned prefill and decode of the ssm, hybrid and encdec "
-        "families and of a context-parallel cache are ROADMAP item 14j")
+from ..tree import tree_flatten_with_path, tree_leaves
 
 
 def prefill_sharded(cfg: ModelConfig, params: Any, batch: dict, caches: Any,
                     mesh) -> tuple[torch.Tensor, Any]:
-    """``T.prefill`` over ``mesh``: the prompt ``batch`` (``tokens``, and a
-    VLM's ``patches``) through parameters placed by ``param_specs`` and
-    caches placed by ``cache_specs``.  Returns (the last position's
-    logits, whole, on the first position's device; the caches)."""
+    """``T.prefill`` over ``mesh``: the prompt ``batch`` (``tokens``, a
+    VLM's ``patches``, an encoder-decoder's ``frames``) through
+    parameters placed by ``param_specs`` and caches placed by
+    ``cache_specs``.  Returns (the last position's logits, whole, on the
+    first position's device; the caches)."""
     return _step(cfg, params, batch, caches, mesh, None)
 
 
@@ -75,34 +83,39 @@ def decode_step_sharded(cfg: ModelConfig, params: Any, tokens, caches: Any,
                  int(cache_pos))
 
 
-def _check(cfg: ModelConfig, params, caches, mesh) -> None:
-    if cfg.family not in DECODER_FAMILIES:
-        raise NotImplementedError(f"{cfg.family}: {TODO}")
+def _check(cfg: ModelConfig, params, caches, mesh, rows: int,
+           dp_size: int) -> bool:
+    """Whether the step runs context-parallel (every data position every
+    row); raises where the placement or the layout cannot run."""
     for what, tree in (("parameter", params), ("cache", caches)):
         for leaf in tree_leaves(tree):
             if not isinstance(leaf, PlacedTensor) \
                     or leaf.sharding.mesh is not mesh:
                 raise ValueError(f"a sharded serving step needs every "
                                  f"{what} placed on the mesh")
-    for leaf in tree_leaves(caches):
-        spec = tuple(leaf.sharding.spec) + (None,) * 3
-        if spec[2] is not None:
-            raise NotImplementedError(f"a cache split over time "
-                                      f"({leaf.sharding.spec}): {TODO}")
+    if rows % dp_size == 0:
+        return False
+    for path, leaf in tree_flatten_with_path(caches):
+        dim = 0 if path[-1] == "enc_out" else 1
+        if leaf.sharding.parts(leaf.ndim)[dim] > 1:
+            raise ValueError(f"{rows} rows over {dp_size} data positions, "
+                             f"and the cache {'/'.join(map(str, path))} "
+                             f"splits its rows ({leaf.sharding.spec})")
+    if cfg.n_experts:
+        raise ValueError(f"{rows} rows over {dp_size} data positions: the "
+                         f"MoE layer takes each data position's own rows")
+    return True
 
 
 def _step(cfg: ModelConfig, params, batch: dict, caches, mesh,
           cache_pos: int | None):
-    _check(cfg, params, caches, mesh)
     pos = _Positions(cfg, mesh, None, True)
     dev0 = pos.dev(pos.pos[0])
     batch = {k: torch.as_tensor(v, device=dev0) for k, v in batch.items()}
     b = batch["tokens"].shape[0]
-    if b % pos.dp_size:
-        raise NotImplementedError(f"{b} rows over {pos.dp_size} data "
-                                  f"positions: {TODO}")
-    rows = b // pos.dp_size
-    local = {idx: {k: v[pos.d(idx) * rows:(pos.d(idx) + 1) * rows].to(
+    every = _check(cfg, params, caches, mesh, b, pos.dp_size)
+    rows = b if every else b // pos.dp_size
+    local = {idx: {k: v[0 if every else pos.d(idx) * rows:][:rows].to(
         pos.dev(idx)) for k, v in batch.items()} for idx in pos.pos}
     with torch.no_grad(), mesh_context(mesh), mesh.pinned_streams():
         xs = pos.embed(params["embed"], {i: x["tokens"]
@@ -116,22 +129,30 @@ def _step(cfg: ModelConfig, params, batch: dict, caches, mesh,
                 decoding = cache_pos is not None and l == 1
                 positions[idx] = T._positions(bl, l, cache_pos if decoding
                                               else None, xs[idx].device)
-        if cfg.dense_prefix:
-            xs = pos.stack(params["prefix_layers"], xs, positions, "mlp",
-                           caches["prefix"], cache_pos)
-        xs = pos.stack(params["layers"], xs, positions,
-                       "moe" if cfg.n_experts else "mlp", caches["main"],
-                       cache_pos)
+        if cfg.family in ("ssm", "hybrid"):
+            xs = pos.mamba_stack(params, xs, positions, caches, cache_pos)
+        elif cfg.family == "encdec":
+            xs = pos.encdec(params, local, xs, positions, caches, cache_pos)
+        else:
+            if cfg.dense_prefix:
+                xs = pos.stack(params["prefix_layers"], xs, positions, "mlp",
+                               caches["prefix"], cache_pos)
+            xs = pos.stack(params["layers"], xs, positions,
+                           "moe" if cfg.n_experts else "mlp", caches["main"],
+                           cache_pos)
         h = pos.norm(params["final_norm"], xs)
         table = params["embed"] if cfg.tie_embeddings else params["unembed"]
-        logits = _logits(pos, table, {i: x[:, -1:] for i, x in h.items()})
+        logits = _logits(pos, table, {i: x[:, -1:] for i, x in h.items()},
+                         every)
     return logits, caches
 
 
-def _logits(pos: _Positions, table: PlacedTensor, hs: dict) -> torch.Tensor:
+def _logits(pos: _Positions, table: PlacedTensor, hs: dict,
+            every: bool = False) -> torch.Tensor:
     """``_unembed`` over the positions: each its rows and its vocabulary
     slice (the padded vocabulary masked by global index), put together
-    on the first position's device."""
+    on the first position's device (``every``: each data position holds
+    every row, and the first's are taken)."""
     cfg = pos.cfg
     ws = {idx: pos.w(table, idx, pos.vocab_slice(idx)) for idx in pos.pos}
     part = {}
@@ -148,7 +169,8 @@ def _logits(pos: _Positions, table: PlacedTensor, hs: dict) -> torch.Tensor:
     dev0 = pos.dev(pos.pos[0])
     blocks: dict = {}
     for idx in pos.pos:
-        blocks.setdefault((pos.d(idx), pos.vocab_slice(idx).start), part[idx])
+        blocks.setdefault((0 if every else pos.d(idx),
+                           pos.vocab_slice(idx).start), part[idx])
     rows = sorted({d for d, _ in blocks})
     return torch.cat([torch.cat([blocks[d, v].to(dev0) for dd, v in
                                  sorted(blocks) if dd == d], dim=-1)

@@ -2,8 +2,9 @@
 
 :mod:`repro_torch.launch.cost_analysis` runs a partitioned step under
 :class:`CollectiveCounter` and its ``TrafficCounterMode``; the layers
-below it (``models.layers._collect``, ``sharding.placement.read_region``)
-report here, so that they import nothing of ``launch``.  With no counter
+below it (``models.layers._collect``, ``sharding.placement.read_region``,
+the optimizer's folds over blocks through :func:`block_fold`) report
+here, so that they import nothing of ``launch``.  With no counter
 active, each hook costs one check of :data:`ACTIVE` (or :data:`TRAFFIC`).
 
 :func:`collective_wire_bytes` is ``src/repro/launch/hlo_analysis.py``'s
@@ -133,6 +134,28 @@ class CollectiveCounter:
             for kind, v in self.by_position.get(tuple(idx), {}).items():
                 out[kind] = out.get(kind, 0.0) + v
         return {k: v / len(positions) for k, v in out.items()}
+
+
+def block_fold(sharding, ndim: int, dims: tuple, result: torch.Tensor
+               ) -> None:
+    """A fold (a sum) of the blocks of a leaf placed by ``sharding`` that
+    split its dimensions ``dims``, whose result is ``result`` (one
+    block's): at every position the mesh runs, an all-reduce over the
+    group of the blocks folded, the positions whose blocks differ only
+    along ``dims`` (the optimizer's sums over blocks held at other
+    positions: ``train/optimizer.py``).  A fold within one block moves
+    nothing and counts nothing; neither does any with no counter
+    active."""
+    counter = ACTIVE
+    if counter is None:
+        return
+    parts = sharding.parts(ndim)
+    g = 1
+    for d in dims:
+        g *= parts[d]
+    if g > 1:
+        counter.group(sharding.mesh.positions(), "all-reduce", size(result),
+                      g)
 
 
 def _scatter_hook(position: tuple):

@@ -25,7 +25,10 @@ block, each block of a parameter once, from its first holder's shard, and
 written to every holder; a state placed otherwise than its parameter is
 read and written by global range.  The norm sums each element once, and
 Adafactor's row, column and update means sum over the blocks that split
-their dimensions, as XLA's partitioned step sums over the devices.
+their dimensions, as XLA's partitioned step sums over the devices; an
+active :class:`~repro_torch.sharding.counters.CollectiveCounter` counts
+each such fold as an all-reduce of its result over the positions whose
+blocks it folds (:func:`~repro_torch.sharding.counters.block_fold`).
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ from typing import Any, Callable
 
 import torch
 
+from ..sharding.counters import block_fold
 from ..sharding.placement import (PlacedTensor, first_device, holders,
                                   read_region, write_region)
 from ..tree import tree_leaves
@@ -51,8 +55,10 @@ class Optimizer:
 def _square_sum(g) -> torch.Tensor:
     if isinstance(g, PlacedTensor):     # each block once
         dev = first_device(g)
-        return sum(torch.sum(torch.square(g.shards[i].float())).to(dev)
-                   for i in holders(g).values())
+        out = sum(torch.sum(torch.square(g.shards[i].float())).to(dev)
+                  for i in holders(g).values())
+        block_fold(g.sharding, g.ndim, tuple(range(g.ndim)), out)
+        return out
     return torch.sum(torch.square(g.float()))
 
 
@@ -163,12 +169,18 @@ def make_adafactor(lr: float = 1e-3, decay: float = 0.8,
                 out[k] = x if k not in out else out[k] + x.to(out[k].device)
             return out
 
+        def fold(dims, parts):          # total(parts), counted
+            out = total(parts)
+            block_fold(p.sharding, p.ndim, dims, next(iter(out.values())))
+            return out
+
+        nd = p.ndim
         if _factored(p.shape):
             rows, cols = p.shape[-2], p.shape[-1]
-            rsum = total((key(sl[:-1]), x.sum(-1))
-                         for (sl, _), x in zip(blocks, g2))
-            csum = total((key(sl[:-2] + sl[-1:]), x.sum(-2))
-                         for (sl, _), x in zip(blocks, g2))
+            rsum = fold((nd - 1,), ((key(sl[:-1]), x.sum(-1))
+                                    for (sl, _), x in zip(blocks, g2)))
+            csum = fold((nd - 2,), ((key(sl[:-2] + sl[-1:]), x.sum(-2))
+                                    for (sl, _), x in zip(blocks, g2)))
             vr, vc = {}, {}
             for sl, dev in blocks:
                 kr, kc = key(sl[:-1]), key(sl[:-2] + sl[-1:])
@@ -179,7 +191,8 @@ def make_adafactor(lr: float = 1e-3, decay: float = 0.8,
                     vc[kc] = (b2[dev] * read_region(s["vc"], sl[:-2]
                                                     + sl[-1:], dev)
                               + (1 - b2[dev]) * csum[kc].to(dev) / rows)
-            vr_mean = total((k[:-1], x.sum(-1)) for k, x in vr.items())
+            vr_mean = fold((nd - 2,), ((k[:-1], x.sum(-1))
+                                       for k, x in vr.items()))
             us = []
             for (sl, dev), x in zip(blocks, gs):
                 kr = key(sl[:-1])
@@ -203,6 +216,7 @@ def make_adafactor(lr: float = 1e-3, decay: float = 0.8,
                 write_region(s["v"], sl, v, written)
         dev0 = blocks[0][1]
         u_sq = sum(torch.sum(u * u).to(dev0) for u in us)
+        block_fold(p.sharding, nd, tuple(range(nd)), u_sq)
         mean_sq = u_sq / math.prod(p.shape)
         for (sl, dev), u in zip(blocks, us):
             write_region(p, sl, finish(mean_sq.to(dev),

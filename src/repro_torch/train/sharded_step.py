@@ -130,12 +130,16 @@ class _Positions:
         return tree_map(lambda leaf: self.w(leaf, idx, *pre), tree)
 
     # ------------------------------------------------------------ layers
-    def attn_weights(self, ap: dict, pre: tuple, idx):
+    def attn_weights(self, ap: dict, pre: tuple, idx, kv: bool = True):
         """(config, parameters, head mask) of a position's heads of
-        attention or MLA at layer ``pre``."""
+        attention or MLA at layer ``pre``; ``kv=False`` leaves out the key
+        and value projections (a cross-attention decode step reads its
+        keys and values from the cache)."""
         cfg = self.cfg
         if self.heads is None:
-            return cfg, self.whole(ap, idx, pre), None
+            return cfg, self.whole({k: v for k, v in ap.items() if kv or k
+                                    not in ("wk", "wv", "bk", "bv")}, idx,
+                                   pre), None
         hl, kl = self.heads
         m = self.m(idx)
         qs = slice(m * hl, (m + 1) * hl)
@@ -155,7 +159,8 @@ class _Positions:
         p["wo"] = self.w(ap["wo"], idx, *pre, qs)
         if "bq" in ap:
             p["bq"] = self.w(ap["bq"], idx, *pre, qs)
-        p.update(self.kv_weights(ap, pre, idx, *self.kv_read(idx)))
+        if kv:
+            p.update(self.kv_weights(ap, pre, idx, *self.kv_read(idx)))
         return cfg.with_(n_heads=hl, n_kv_heads=kl, pad_heads_to=0), p, hm
 
     def kv_read(self, idx) -> tuple[int, int]:
@@ -207,18 +212,23 @@ class _Positions:
     def attn_block(self, ap: dict, ln: dict, pre: tuple, xs: dict,
                    positions: dict, causal: bool = True,
                    kv: dict | None = None, cache: dict | None = None,
-                   cache_pos: int | None = None) -> dict:
+                   cache_pos: int | None = None,
+                   ci: int | None = None) -> dict:
         """``x + attention(rms_norm(x, ln))`` over the positions, MLA where
         the config has it; ``kv`` holds each position's encoder output,
         which cross-attention's keys and values read.  ``cache`` (placed
-        ``k``/``v`` or ``c_kv``/``k_rope`` leaves, layer ``pre``) makes it
-        a serving step's causal self-attention (:meth:`cached_attention`)."""
+        ``k``/``v`` or ``c_kv``/``k_rope`` leaves, layer ``ci``, default
+        ``pre[0]``) makes it a serving step's attention
+        (:meth:`cached_attention`; non-causal: cross-attention)."""
         cfg = self.cfg
         h = self.norm(ln, xs, pre)
-        aw = {idx: self.attn_weights(ap, pre, idx) for idx in self.pos}
+        reads = causal or cache is None or cache_pos is None
+        aw = {idx: self.attn_weights(ap, pre, idx, kv=reads)
+              for idx in self.pos}
         if cache is not None:
-            parts = self.cached_attention(ap, pre, h, aw, positions, cache,
-                                          cache_pos)
+            parts = self.cached_attention(
+                ap, pre, h, aw, positions, cache, cache_pos,
+                pre[0] if ci is None else ci, kv=kv, cross=not causal)
             return self.add(xs, self.psum(parts) if self.heads is not None
                             else parts)
         parts = {}
@@ -239,24 +249,41 @@ class _Positions:
 
     def cached_attention(self, ap: dict, pre: tuple, h: dict, aw: dict,
                          positions: dict, cache: dict,
-                         cache_pos: int | None) -> dict:
-        """Each position's partial of a serving step's attention at layer
-        ``pre`` (``layers.attention`` and ``mla_attention`` with a cache):
-        first every position computes the new entries of the cache block
-        it holds (its rows; the KV heads of its block, or MLA's whole
-        latent, cut to its block) and writes them into its own shard at
-        ``cache_pos`` (a prefill: at 0); then each reads the cache region
-        its query heads attend to (its rows, every time step; MLA's whole
-        latent), blocks it does not hold from their holders, and attends
-        with its heads, keys at the step's end and past it masked."""
+                         cache_pos: int | None, ci: int,
+                         kv: dict | None = None,
+                         cross: bool = False) -> dict:
+        """Each position's partial of a serving step's attention with the
+        weights at ``pre`` and the cache at layer ``ci``
+        (``layers.attention`` and ``mla_attention`` with a cache).
+
+        First every position computes the new entries of the cache block
+        it holds (its rows, or every row where the data positions do not
+        split them; the KV heads of its block, or MLA's whole latent, cut
+        to its block) and writes the part that falls in its block into its
+        own shard: self-attention at ``cache_pos`` (a prefill: at 0), a
+        prefill's cross-attention the encoder output's keys and values
+        (``kv``).  A cross-attention decode step writes nothing.  Then
+        each reads the region its query heads attend to, blocks it does
+        not hold from their holders, and attends with its heads.  A
+        cache split over time (the context-parallel layout) is attended
+        block by block: each data position over its own time block, the
+        blocks' maxima, exp-sums and weighted values combined over
+        ``"data"`` (:meth:`attend_blocks`).  A prefill's cross-attention
+        attends with the fresh float keys and values, as the one-device
+        layer does."""
         cfg = self.cfg
-        i = pre[0]
         l = h[self.pos[0]].shape[1]
         off = cache_pos if l == 1 and cache_pos is not None else 0
-        limit = (cache_pos + l) if cache_pos is not None else l
+        limit = None if cross else (
+            (cache_pos + l) if cache_pos is not None else l)
         names = ("c_kv", "k_rope") if cfg.mla else ("k", "v")
         leaves = [cache[k] for k in names]
-        q, rows, written = {}, {}, set()
+        split = leaves[0].sharding.parts(leaves[0].ndim)[2] > 1
+        if cfg.mla and split:
+            raise ValueError("an MLA cache split over time: no cell of the "
+                             "zoo runs one")
+        q, rows, fresh, written = {}, {}, {}, set()
+        writes = not cross or cache_pos is None
         for idx in self.pos:
             acfg, p, hm = aw[idx]
             own = [x.sharding.slices(x.shape, idx) for x in leaves]
@@ -264,7 +291,8 @@ class _Positions:
             if own[0][1].stop - own[0][1].start != h[idx].shape[0]:
                 raise ValueError(f"position {idx}: {h[idx].shape[0]} rows, "
                                  f"its cache block {own[0][1]}")
-            if not cfg.mla:
+            src = h[idx] if kv is None else kv[idx]
+            if not cfg.mla and writes:
                 kl = own[0][3]
                 n = kl.stop - kl.start
                 kw = ({k: p[k] for k in ("wk", "wv", "bk", "bv") if k in p}
@@ -272,44 +300,103 @@ class _Positions:
                       else self.kv_weights(ap, pre, idx, kl.start, n))
                 kw.update({k: v for k, v in p.items() if k == "k_norm"})
                 kcfg = cfg.with_(n_heads=n, n_kv_heads=n, pad_heads_to=0)
-            with self.on(idx, *tree_leaves(p), hm):
+            rope = cfg.rope and not cross
+            with self.on(idx, *tree_leaves(p), hm, src):
                 if cfg.mla:
                     q[idx] = L.mla_q(acfg, p, h[idx], positions[idx])
                     new = L.mla_latent(acfg, p, h[idx], positions[idx])
                     new = [t[..., o[3]] for t, o in zip(new, own)]
                 else:
-                    q[idx] = L.attn_q(acfg, p, h[idx], positions[idx],
-                                      cfg.rope)
-                    new = L.attn_kv(kcfg, kw, h[idx], positions[idx],
-                                    cfg.rope)
-                for x, t in zip(leaves, new):
-                    dst = x.shards[idx][i, :, off:off + l]
-                    key = (dst.device, dst.data_ptr(), tuple(dst.shape),
-                           dst.stride())
-                    if dst.device.type == "meta" or key not in written:
-                        written.add(key)
-                        dst.copy_(t)
+                    q[idx] = L.attn_q(acfg, p, h[idx], positions[idx], rope)
+                    if writes:
+                        new = L.attn_kv(kcfg, kw, src, positions[idx], rope)
+                    if cross and writes:
+                        fresh[idx] = (new if (kl.start, n) == self.kv_read(
+                            idx) else L.attn_kv(acfg, p, src, positions[idx],
+                                                False))
+                if writes:
+                    for x, t, o in zip(leaves, new, own):
+                        _write_own(x, idx, (ci, o[1], slice(off, None), o[3]),
+                                   t, written)
         L._join(self.mesh, {idx: x.shards[idx] for idx in self.pos
                             for x in leaves}, self.streams)
+        if split:
+            return self.attend_blocks(aw, q, rows, positions, leaves, ci,
+                                      limit, cross)
         parts = {}
         for idx in self.pos:
             acfg, p, hm = aw[idx]
-            region = (i, rows[idx], slice(None))
+            if idx in fresh:
+                k, v = fresh[idx]
+                with self.on(idx, k, v):
+                    parts[idx] = L.attend(acfg, p, q[idx], k, v,
+                                          positions=positions[idx],
+                                          causal=False, is_cross=True,
+                                          head_mask=hm)
+                continue
+            region = (ci, rows[idx], slice(None))
             if not cfg.mla:
                 lo, n = self.kv_read(idx)
                 region = region + (slice(lo, lo + n),)
-            kv = [read_region(x, region, self.dev(idx), position=idx)
-                  for x in leaves]
-            with self.on(idx, *kv):
+            kvs = [read_region(x, region, self.dev(idx), position=idx)
+                   for x in leaves]
+            with self.on(idx, *kvs):
                 if cfg.mla:
                     parts[idx] = L.mla_attend(
-                        acfg, p, *q[idx], *kv, positions=positions[idx],
+                        acfg, p, *q[idx], *kvs, positions=positions[idx],
                         limit=limit, absorbed=l == 1, head_mask=hm)
                 else:
                     parts[idx] = L.attend(
-                        acfg, p, q[idx], *kv, positions=positions[idx],
-                        causal=True, limit=limit, head_mask=hm)
+                        acfg, p, q[idx], *kvs, positions=positions[idx],
+                        causal=not cross, is_cross=cross, limit=limit,
+                        head_mask=hm)
         return parts
+
+    def attend_blocks(self, aw: dict, q: dict, rows: dict, positions: dict,
+                      leaves: list, ci: int, limit: int | None,
+                      cross: bool) -> dict:
+        """Attention on a cache split over time over ``"data"``: each
+        position attends its queries to its own time block (its query
+        heads' KV heads, blocks it does not hold from their holders),
+        keeps the block's maxima, exp-sums and unnormalised weighted
+        values (:func:`_attend_part`), and the blocks combine over
+        ``"data"``: a ``pmax`` of the maxima, then sums of the exp-sums
+        and of the weighted values, each rescaled by ``exp(m - max)``
+        (a block with no valid key: ``-1e30`` against the maximum, so 0).
+        Then the head mask and ``wo``."""
+        parts = {}
+        for idx in self.pos:
+            acfg, p, hm = aw[idx]
+            lo, n = self.kv_read(idx)
+            own = leaves[0].sharding.slices(leaves[0].shape, idx)[2]
+            kvs = [read_region(x, (ci, rows[idx], own, slice(lo, lo + n)),
+                               self.dev(idx), position=idx) for x in leaves]
+            with self.on(idx, *kvs):
+                parts[idx] = _attend_part(acfg, q[idx], *kvs,
+                                          positions[idx], own.start, limit,
+                                          cross)
+        mx = L._pmax(self.mesh, {i: t[0] for i, t in parts.items()},
+                     ("data",), self.streams)
+        se, wv = {}, {}
+        for idx in self.pos:
+            with self.on(idx):
+                f = torch.exp(parts[idx][0] - mx[idx])      # (b, kv, l, g)
+                se[idx] = parts[idx][1] * f
+                wv[idx] = parts[idx][2] * f.permute(0, 2, 1, 3)[..., None]
+        se = L._psum(self.mesh, se, ("data",), self.streams)
+        wv = L._psum(self.mesh, wv, ("data",), self.streams)
+        out = {}
+        for idx in self.pos:
+            acfg, p, hm = aw[idx]
+            with self.on(idx, *tree_leaves(p), hm):
+                b, l, kvh, g, dh = wv[idx].shape
+                ctx = (wv[idx] / se[idx].permute(0, 2, 1, 3)[..., None]).to(
+                    leaves[1].dtype).reshape(b, l, kvh * g, dh)
+                hm = L._head_mask(acfg, ctx.device) if hm is None else hm
+                if hm is not None:
+                    ctx = ctx * hm[None, None, :, None].to(ctx.dtype)
+                out[idx] = L.einsum("blhk,hkd->bld", ctx, p["wo"])
+        return out
 
     def ffn_block(self, fp: dict, ln: dict, pre: tuple, xs: dict, ffn: str,
                   gelu: bool = False) -> dict:
@@ -431,28 +518,54 @@ class _Positions:
                     y[idx] = y[idx] + shared[idx]
         return {idx: y[idx].reshape(hs[idx].shape) for idx in self.pos}
 
-    def mamba(self, mp: dict, pre: tuple, hs: dict) -> dict:
+    def mamba(self, mp: dict, pre: tuple, hs: dict, cache: dict | None = None,
+              ci: int | None = None) -> dict:
         """``layers.mamba2`` over the positions: each its SSM heads, with
         the ``d_inner`` channels, convolution taps and per-head scalars
         they own, and B and C whole; the gated norm's sum of squares and
         the row-parallel ``out_proj`` summed over ``"model"``.  Heads that
         do not split into whole groups over the model axis compute whole
-        at every position."""
+        at every position.
+
+        ``cache`` (the placed ``conv_x``, ``conv_bc`` and ``ssd`` leaves,
+        layer ``ci``) makes it a serving step's: each position reads the
+        states its heads need (its rows; ``ssd`` and ``conv_x`` of its
+        heads, ``conv_bc`` whole, blocks it does not hold from their
+        holders), and once every position has read, writes into its own
+        shard the part of the new states that falls in its block."""
         cfg = self.cfg
+        states = {}
+        if cache is not None:
+            for idx in self.pos:
+                rows = cache["ssd"].sharding.slices(cache["ssd"].shape,
+                                                    idx)[1]
+                if rows.stop - rows.start != hs[idx].shape[0]:
+                    raise ValueError(f"position {idx}: {hs[idx].shape[0]} "
+                                     f"rows, its cache block {rows}")
+                heads, chans = self.ssm_range(idx)
+                states[idx] = {"ssd": (ci, rows, heads),
+                               "conv_x": (ci, rows, slice(None), chans),
+                               "conv_bc": (ci, rows)}
+        st = {idx: {k: read_region(cache[k], r, self.dev(idx), position=idx)
+                    for k, r in states[idx].items()} for idx in states}
         if self.ssm is None:
             ps = {idx: self.whole(mp, idx, pre) for idx in self.pos}
-            out = {}
+            out, new = {}, {}
             for idx in self.pos:
-                with self.on(idx, *tree_leaves(ps[idx])):
-                    out[idx], _ = L.mamba2(cfg, ps[idx], hs[idx])
+                with self.on(idx, *tree_leaves(ps[idx]),
+                             *tree_leaves(st.get(idx, {}))):
+                    y, z, new[idx] = L._mamba2_mix(cfg, ps[idx], hs[idx],
+                                                   cache=st.get(idx))
+                    y = L.rms_norm_gated(y, z, ps[idx]["gate_norm"],
+                                         cfg.norm_eps)
+                    out[idx] = L.matmul(y, ps[idx]["out_proj"])
+            if cache is not None:
+                self.write_states(cache, states, new)
             return out
-        hl, per = self.ssm, cfg.ssm_heads // cfg.ssm_groups
+        per = cfg.ssm_heads // cfg.ssm_groups
         ws, groups = {}, {}
         for idx in self.pos:
-            m = self.m(idx)
-            heads = slice(m * hl, (m + 1) * hl)
-            chans = slice(heads.start * cfg.ssm_headdim,
-                          heads.stop * cfg.ssm_headdim)
+            heads, chans = self.ssm_range(idx)
             w = {k: self.w(mp[k], idx, *pre)
                  for k in ("b_proj", "c_proj", "conv_bc", "conv_b_bc")}
             for k in ("zx_proj", "conv_x", "dt_proj"):
@@ -467,13 +580,17 @@ class _Positions:
             ws[idx] = w
             groups[idx] = slice(heads.start // per,
                                 (heads.stop - 1) // per + 1)
-        gated, ss = {}, {}
+        gated, ss, new = {}, {}, {}
         for idx in self.pos:
-            with self.on(idx, *ws[idx].values()):
-                y, z, _ = L._mamba2_mix(cfg, ws[idx], hs[idx],
-                                        groups=groups[idx])
+            with self.on(idx, *ws[idx].values(),
+                         *tree_leaves(st.get(idx, {}))):
+                y, z, new[idx] = L._mamba2_mix(cfg, ws[idx], hs[idx],
+                                               cache=st.get(idx),
+                                               groups=groups[idx])
                 gated[idx] = (y * F.silu(z.float()).to(y.dtype)).float()
                 ss[idx] = (gated[idx] * gated[idx]).sum(-1, keepdim=True)
+        if cache is not None:
+            self.write_states(cache, states, new)
         ss = self.psum(ss)
         parts = {}
         for idx in self.pos:
@@ -483,6 +600,28 @@ class _Positions:
                 y = (y * ws[idx]["scale"].float()).to(hs[idx].dtype)
                 parts[idx] = L.matmul(y, ws[idx]["out_proj"])
         return self.psum(parts)
+
+    def ssm_range(self, idx) -> tuple[slice, slice]:
+        """(SSM heads, ``d_inner`` channels) a position's mixer computes."""
+        cfg = self.cfg
+        if self.ssm is None:
+            return slice(0, cfg.ssm_heads), slice(0, cfg.d_inner)
+        m = self.m(idx)
+        heads = slice(m * self.ssm, (m + 1) * self.ssm)
+        return heads, slice(heads.start * cfg.ssm_headdim,
+                            heads.stop * cfg.ssm_headdim)
+
+    def write_states(self, cache: dict, regions: dict, new: dict) -> None:
+        """After every position's mixer has read its states, each writes
+        the part of its new ``conv_x``, ``conv_bc`` and ``ssd`` (computed
+        over ``regions[idx]``) that falls in its own blocks."""
+        L._join(self.mesh, {idx: t for idx in self.pos for t in new[idx]},
+                self.streams)
+        written: set = set()
+        for idx in self.pos:
+            with self.on(idx, *new[idx]):
+                for k, t in zip(("conv_x", "conv_bc", "ssd"), new[idx]):
+                    _write_own(cache[k], idx, regions[idx][k], t, written)
 
     # ------------------------------------------------- vocabulary, losses
     def vocab_slice(self, idx) -> slice:
@@ -655,69 +794,106 @@ class _Positions:
                 xs = self.remat(self.layer, tree, i, xs, positions, ffn)
         return xs
 
-    def mamba_stack(self, params: dict, xs: dict, positions: dict) -> dict:
+    def mamba_stack(self, params: dict, xs: dict, positions: dict,
+                    caches: dict | None = None,
+                    cache_pos: int | None = None) -> dict:
         """The Mamba2 layers of ``_ssm_lm_apply`` and ``_hybrid_lm_apply``:
         ``x + mamba(rms_norm(x, ln))``, and in the hybrid the shared
         attention block (one set of weights, unstacked) after every
-        ``hybrid_period``-th layer, in the same recompute unit."""
+        ``hybrid_period``-th layer, in the same recompute unit.  With the
+        placed ``caches`` (serving: no recompute), layer ``i``'s Mamba2
+        states are ``caches["main"]``'s layer ``i``, and the shared
+        block's keys and values ``caches["attn"]``'s invocation
+        ``i // hybrid_period``."""
         cfg = self.cfg
         lp = params["layers"]
         period = cfg.hybrid_period if cfg.family == "hybrid" else 0
+        main = None if caches is None else caches["main"]
 
         def body(xs, i):
             h = self.norm(lp["ln"], xs, (i,))
-            xs = self.add(xs, self.mamba(lp["mamba"], (i,), h))
+            xs = self.add(xs, self.mamba(lp["mamba"], (i,), h, main, i))
             if period and i % period == period - 1:
                 sp = params["shared_attn"]
-                xs = self.attn_block(sp["attn"], sp["ln"], (), xs, positions)
+                xs = self.attn_block(
+                    sp["attn"], sp["ln"], (), xs, positions,
+                    cache=None if caches is None else caches["attn"],
+                    cache_pos=cache_pos,
+                    ci=min(i // period, cfg.n_layers // period - 1))
                 xs = self.ffn_block(sp["mlp"], sp["ln2"], (), xs, "mlp")
             return xs
 
         for i in range(cfg.n_layers):
-            xs = self.remat(body, xs, i)
+            xs = body(xs, i) if caches is not None else self.remat(body, xs,
+                                                                   i)
         return xs
 
-    def encdec(self, params: dict, batch: dict, xs: dict,
-               positions: dict) -> dict:
+    def encdec(self, params: dict, batch: dict, xs: dict, positions: dict,
+               caches: dict | None = None,
+               cache_pos: int | None = None) -> dict:
         """``_encdec_apply`` from the embedded tokens: the encoder over
         each position's rows of ``frames`` (``_encode``: non-causal
         attention, a GELU MLP, ``enc_norm``), whose output is whole along
         ``"model"`` after its sums; then the decoder layers
         (``_dec_layer``: causal self-attention, cross-attention on the
-        encoder output, a GELU MLP) over the sinusoid-embedded tokens."""
+        encoder output, a GELU MLP) over the sinusoid-embedded tokens.
+
+        With the placed ``caches`` (serving), a prefill writes each
+        position's rows of the encoder output into ``enc_out`` and the
+        cross-attention's keys and values into ``dec/cross``; a decode
+        step runs no encoder and reads the cross cache."""
         cfg = self.cfg
         dt = L.dtype_of(cfg)
         ep, dp = params["enc_layers"], params["dec_layers"]
-        x, epos, ys = {}, {}, {}
+        ys = {}
         for idx in self.pos:
-            fr = batch[idx]["frames"]
-            with self.on(idx, fr):
-                b, t, _ = fr.shape
-                epos[idx] = T._positions(b, t, None, fr.device)
-                x[idx] = fr.to(dt) + T._sinusoid(epos[idx],
-                                                 cfg.d_model).to(dt)
+            with self.on(idx):
                 ys[idx] = xs[idx] + T._sinusoid(
                     positions[idx], cfg.d_model).to(xs[idx].dtype)
+        enc = None
+        if caches is None or cache_pos is None:
+            x, epos = {}, {}
+            for idx in self.pos:
+                fr = batch[idx]["frames"]
+                with self.on(idx, fr):
+                    b, t, _ = fr.shape
+                    epos[idx] = T._positions(b, t, None, fr.device)
+                    x[idx] = fr.to(dt) + T._sinusoid(epos[idx],
+                                                     cfg.d_model).to(dt)
 
-        def enc_layer(x, i):
-            x = self.attn_block(ep["attn"], ep["ln1"], (i,), x, epos,
-                                causal=False)
-            return self.ffn_block(ep["mlp"], ep["ln2"], (i,), x, "mlp",
-                                  gelu=True)
+            def enc_layer(x, i):
+                x = self.attn_block(ep["attn"], ep["ln1"], (i,), x, epos,
+                                    causal=False)
+                return self.ffn_block(ep["mlp"], ep["ln2"], (i,), x, "mlp",
+                                      gelu=True)
+
+            for i in range(cfg.n_enc_layers):
+                x = enc_layer(x, i) if caches is not None \
+                    else self.remat(enc_layer, x, i)
+            enc = self.norm(params["enc_norm"], x)
+            if caches is not None:
+                out = caches["enc_out"]
+                written: set = set()
+                for idx in self.pos:
+                    rows = out.sharding.slices(out.shape, idx)[0]
+                    with self.on(idx, enc[idx]):
+                        _write_own(out, idx, (rows,), enc[idx], written)
+        dc = None if caches is None else caches["dec"]
 
         def dec_layer(xs, i, enc):
             xs = self.attn_block(dp["self_attn"], dp["ln1"], (i,), xs,
-                                 positions)
+                                 positions, cache=dc and dc["self"],
+                                 cache_pos=cache_pos)
             xs = self.attn_block(dp["cross_attn"], dp["ln_x"], (i,), xs,
-                                 positions, causal=False, kv=enc)
+                                 positions, causal=False, kv=enc,
+                                 cache=dc and dc["cross"],
+                                 cache_pos=cache_pos)
             return self.ffn_block(dp["mlp"], dp["ln2"], (i,), xs, "mlp",
                                   gelu=True)
 
-        for i in range(cfg.n_enc_layers):
-            x = self.remat(enc_layer, x, i)
-        enc = self.norm(params["enc_norm"], x)
         for i in range(cfg.n_layers):
-            ys = self.remat(dec_layer, ys, i, enc)
+            ys = dec_layer(ys, i, enc) if caches is not None \
+                else self.remat(dec_layer, ys, i, enc)
         return ys
 
     def norm(self, p: dict, xs: dict, pre: tuple = ()) -> dict:
@@ -776,6 +952,77 @@ class _Positions:
         tot, cnt = self.ce(table, self.norm(mp["final_norm"], x2), lab2,
                            mask2)
         return tot / torch.clamp(cnt, min=1.0)
+
+
+def _write_own(leaf: PlacedTensor, idx, region: tuple, value: torch.Tensor,
+               written: set) -> None:
+    """Write the part of ``value`` (the global ``region`` of the leaf: an
+    int drops its dimension, a slice starts where ``value`` does) that
+    falls in the block position ``idx`` holds into that position's own
+    shard, and nothing into another's.  Positions whose shards are views
+    of one copy write it once (``written``; a meta shard every time)."""
+    own = leaf.sharding.slices(leaf.shape, idx)
+    region = tuple(region) + (slice(None),) * (leaf.ndim - len(region))
+    dst, src, k = [], [], 0
+    for o, r in zip(own, region):
+        if isinstance(r, int):
+            if not o.start <= r < o.stop:
+                return
+            dst.append(r - o.start)
+            continue
+        start = r.start or 0
+        lo, hi = max(o.start, start), min(o.stop, start + value.shape[k])
+        if lo >= hi:
+            return
+        dst.append(slice(lo - o.start, hi - o.start))
+        src.append(slice(lo - start, hi - start))
+        k += 1
+    target = leaf.shards[idx][tuple(dst)]
+    key = (target.device, target.data_ptr(), tuple(target.shape),
+           target.stride())
+    if target.device.type == "meta" or key not in written:
+        written.add(key)
+        target.copy_(value[tuple(src)])
+
+
+def _attend_part(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor, positions: torch.Tensor, t0: int,
+                 limit: int | None, cross: bool):
+    """``layers.attend``'s softmax over one time block of keys, those at
+    global times ``t0, t0 + 1, ...``, unnormalised: ``(max (b, kv, l,
+    g), exp-sum (b, kv, l, g), weighted values (b, l, kv, g, dh))`` in
+    float32, masked keys at ``-1e30`` (a block with none valid: maximum
+    ``-1e30``).  Queries run in ``cfg.attn_chunk`` chunks as there."""
+    b, l, h, dh = q.shape
+    kvh, t = k.shape[2], k.shape[1]
+    qg = q.reshape(b, l, kvh, h // kvh, dh)
+    scale = dh ** -0.5
+    key_pos = torch.arange(t0, t0 + t, device=q.device)
+    valid = (key_pos[None, :] < limit) if limit is not None else \
+        torch.ones((1, t), dtype=torch.bool, device=q.device)
+
+    def chunk(qg_c, pos_c):
+        lc = qg_c.shape[1]
+        scores = L.einsum("blkgh,btkh->bklgt", qg_c, k).float() * scale
+        if cross:
+            mask = valid[:, None, :].expand(b, lc, t)
+        else:
+            mask = (key_pos[None, None, :] <= pos_c[..., None]) \
+                & valid[:, None, :]
+        scores = torch.where(mask[:, None, :, None, :], scores, -1e30)
+        m = scores.amax(dim=-1)
+        w = torch.exp(scores - m[..., None])
+        return (m, w.sum(dim=-1),
+                L.einsum("bklgt,btkh->blkgh", w.to(v.dtype), v).float())
+
+    nc = L._chunks(l, cfg.attn_chunk)
+    if nc == 1:
+        return chunk(qg, positions)
+    got = [chunk(qc, pc) for qc, pc in zip(qg.chunk(nc, dim=1),
+                                           positions.chunk(nc, dim=1))]
+    return (torch.cat([x[0] for x in got], dim=2),
+            torch.cat([x[1] for x in got], dim=2),
+            torch.cat([x[2] for x in got], dim=1))
 
 
 def _rows(batch: dict, lo: int, hi: int, pos: _Positions, device) -> dict:

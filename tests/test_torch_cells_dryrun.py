@@ -19,14 +19,15 @@ package's.
   position) and, in an encoder-decoder prefill, the encoder output and
   the cross-attention caches (whisper's prefill writes them before any
   read); each such term is computed from its specs and named;
-* the collective bytes of the six mini cells and of four decoder serving
-  cells, kind by kind, against XLA's (``analyze_text`` of the compiled
-  step; a train cell's gradient step alone, as the port counts it),
-  through a ledger: one move a data movement, its port and XLA bytes
-  computed from the config's widths, each difference named;
+* the collective bytes of the six mini cells and of seven more serving
+  cells (the decoders' and one more of each of the ssm, hybrid and
+  encdec families), kind by kind, against XLA's (``analyze_text`` of the
+  compiled step; a train cell's whole step, the optimizer update
+  included, as the port counts it), through a ledger: one move a data
+  movement, its port and XLA bytes computed from the config's widths,
+  each difference named;
 * the artifact's new fields (global and a position's accessed and
-  collective bytes; a train cell's note of its scope; null and a note
-  for a serving cell with no partitioned step);
+  collective bytes, for every cell; a train cell's note of its scope);
 * a train cell's FLOPs from one microbatch times ``grad_accum`` equal to
   ``FlopCounterMode``'s count of the whole accumulated step, on reduced
   dense and MoE configs;
@@ -35,6 +36,7 @@ package's.
 JAX's side runs once, in one subprocess with 8 forced host devices.
 """
 import json
+import math
 import os
 import subprocess
 import sys
@@ -65,10 +67,13 @@ MINI = [("qwen3-0.6b", "train_4k"), ("qwen3-moe-30b-a3b", "train_4k"),
         ("zamba2-7b", "long_500k"), ("deepseek-v3-671b", "train_4k")]
 KIND = dict(train_4k="train", prefill_32k="prefill", decode_32k="decode",
             long_500k="decode")
-#: decoder serving cells whose collectives are held against XLA's too
+#: serving cells whose collectives are held against XLA's too: the
+#: decoders', and one more of each of the ssm, hybrid and encdec families
 SERVE_MINI = [("qwen3-0.6b", "prefill_32k"), ("qwen3-0.6b", "decode_32k"),
               ("qwen3-moe-30b-a3b", "decode_32k"),
-              ("deepseek-v3-671b", "decode_32k")]
+              ("deepseek-v3-671b", "decode_32k"),
+              ("mamba2-780m", "prefill_32k"), ("zamba2-7b", "prefill_32k"),
+              ("whisper-large-v3", "decode_32k")]
 #: (arch, reduced) whose optimizer-state specs are compared
 SPEC_ARCHS = [("qwen3-0.6b", False), ("deepseek-v3-671b", False),
               ("qwen3-moe-30b-a3b", True), ("mamba2-780m", False)]
@@ -99,7 +104,6 @@ from repro.models import transformer as T
 from repro.models.config import ShapeSpec
 from repro.sharding import rules as R
 from repro.sharding import mesh_context
-from repro.train.train_step import grads_and_metrics
 
 mini, spec_archs, meshes, kind, serve_mini = (json.loads(a)
                                               for a in sys.argv[1:6])
@@ -156,18 +160,8 @@ for arch, sname in mini + serve_mini:
         if [arch, sname] in mini:
             out["args"][f"{arch}/{sname}"] = int(
                 compiled.memory_analysis().argument_size_in_bytes)
-        if kind[sname] == "train":
-            # the gradient step alone, as the port's dry run counts it
-            params, _, batch, _ = args
-            grads = jax.jit(
-                lambda p, b, cfg=cfg: grads_and_metrics(cfg, p, b),
-                in_shardings=(D._named(mesh, R.param_specs(cfg, params,
-                                                           mesh)),
-                              D._named(mesh, R.batch_specs(cfg, batch,
-                                                           mesh))),
-                out_shardings=(D._named(mesh, R.param_specs(cfg, params,
-                                                            mesh)), None))
-            compiled = grads.lower(params, batch).compile()
+    # a train cell's whole step, the optimizer update included, as the
+    # port's dry run counts it
     out["hlo"][f"{arch}/{sname}"] = analyze_text(compiled.as_text())
 print(json.dumps(out))
 '''
@@ -840,9 +834,264 @@ def _residual_cotangents(cfg, port_sums: int, xla: float) -> Move:
         "projection's")
 
 
+# ------------------------------------------------------ the optimizer update
+# A train cell's step ends in the gradient norm (the ``grad_norm`` metric,
+# and AdamW's clip: two) and the optimizer's update, whose sums over a
+# leaf's blocks fold blocks held at other positions.  The port counts a
+# fold as one all-reduce of its result over the positions holding the
+# blocks it folds; XLA all-reduces over each mesh axis that splits them,
+# one after the other.
+SIZES = {"data": DP, "model": MP}
+
+
+def _leaf_axes(cfg) -> list:
+    """(path, shape, the axes each dimension is split over) of every
+    parameter on the mini mesh."""
+    mesh = meta_mesh((DP, MP), ("data", "model"))
+    params = T.init_model(cfg, None)
+    specs = R.param_specs(cfg, params, mesh)
+    out = []
+    for (path, leaf), (_, spec) in zip(
+            tree_flatten_with_path(params),
+            tree_flatten_with_path(specs, is_leaf=R.is_spec)):
+        spec = tuple(spec) + (None,) * (leaf.ndim - len(spec))
+        axes = [() if e is None else (e if isinstance(e, tuple) else (e,))
+                for e in spec]
+        out.append(("/".join(map(str, path)), tuple(leaf.shape), axes))
+    return out
+
+
+def _fold(b: float, axes) -> tuple[float, float]:
+    """(port, XLA) all-reduce bytes of a fold of ``b`` bytes over the
+    blocks split along ``axes``."""
+    flat = [a for ax in axes for a in ax]
+    return (ar(b, math.prod(SIZES[a] for a in flat)),
+            sum(ar(b, SIZES[a]) for a in flat))
+
+
+def _norms_moves(cfg, norms: int) -> Move:
+    port = xla = 0.0
+    for _, _, axes in _leaf_axes(cfg):
+        p, x = _fold(F32, axes)
+        port, xla = port + norms * p, xla + norms * x
+    return Move("gradient norm's square sums"
+                + (" (the metric's and the clip's)" if norms == 2 else ""),
+                {AR: port}, {AR: xla},
+                "a float32 scalar a leaf split over the mesh (see above)")
+
+
+def _ada_folds(shape, axes, vr_mean: bool = True) -> list:
+    """(bytes, axes) of Adafactor's folds of a leaf whose dimensions are
+    split over ``axes``: the row sums (over the last dimension), the
+    column sums and the row statistic's mean (over the one before), the
+    update's RMS (a scalar over every split)."""
+    block = [n // math.prod(SIZES[a] for a in ax)
+             for n, ax in zip(shape, axes)]
+    every = tuple(a for ax in axes for a in ax)
+    out = []
+    if len(shape) >= 2:
+        out += [(math.prod(block[:-1]) * F32, axes[-1]),
+                (math.prod(block[:-2] + block[-1:]) * F32, axes[-2])]
+        if vr_mean:
+            out.append((math.prod(block[:-2]) * F32, axes[-2]))
+    return out + [(F32, every)]
+
+
+def _sides(folds) -> tuple[float, float]:
+    port = xla = 0.0
+    for b, axes in folds:
+        p, x = _fold(b, (axes,))
+        port, xla = port + p, xla + x
+    return port, xla
+
+
+#: deepseek-v3's leaves whose float32 gradient XLA's step keeps in another
+#: layout than the parameter's (the gradient ledger names each): the axes
+#: of that layout, a dimension each, with the gathers of its statistics
+#: back into the optimizer state's layout
+_M, _D = ("model",), ("data",)
+
+
+def _adafactor(cfg) -> list:
+    port = xla = 0.0
+    moved = {"port": 0.0, AR: 0.0, AG: 0.0}
+    E, fe, d = cfg.n_experts, cfg.d_expert, cfg.d_model
+    for path, shape, axes in _leaf_axes(cfg):
+        p, x = _sides(_ada_folds(shape, axes))
+        xla_axes, vr_mean, gathers = None, True, 0.0
+        if path in ("prefix_layers/ln1/scale", "prefix_layers/ln2/scale",
+                    "prefix_layers/attn/q_norm/scale",
+                    "layers/attn/q_norm/scale",
+                    "mtp/layer/attn/q_norm/scale"):
+            xla_axes = [()] * (len(shape) - 1) + [_M]
+            gathers = ag(shape[-1] * F32, MP)
+        elif path == "layers/moe/shared/wi":
+            xla_axes, gathers = [(), _D, _M], ag(shape[-1] * F32, MP)
+        elif path in ("layers/moe/shared/wo", "prefix_layers/mlp/wo"):
+            xla_axes, vr_mean = [(), _M, _D], False
+            gathers = ag(shape[-2] * F32, MP)
+        elif path == "mtp/layer/mlp/wo":
+            xla_axes, gathers = [_M, _D], ag(shape[-2] * F32, MP)
+        elif path == "layers/moe/wo":
+            xla_axes = [(), _M, _D, ()]
+            gathers = ag(E // MP * fe * F32, DP) + ag(E // MP * d * F32, DP)
+        if xla_axes is None:
+            port, xla = port + p, xla + x
+            continue
+        _, x = _sides(_ada_folds(shape, xla_axes, vr_mean))
+        # the norm's square sum too: in that layout, not the parameter's
+        moved["port"] += p
+        moved[AR] += x + _fold(F32, xla_axes)[1] - _fold(F32, axes)[1]
+        moved[AG] += gathers
+    return [
+        Move("Adafactor's row, column, row-mean and update-RMS sums",
+             {AR: port}, {AR: xla}, "each a fold over the blocks that "
+             "split a leaf's dimensions (see above)"),
+        Move("Adafactor's sums of the gradients XLA keeps in another "
+             "layout", {AR: moved["port"]}, {AR: moved[AR], AG: moved[AG]},
+             "the norm scales at their model halves, the shared expert's "
+             "and the MLPs' wo with d_ff over model, the MoE wo with "
+             "d_expert over data: XLA sums their statistics (and their "
+             "square sums for the norm) in that layout, takes the stacked "
+             "wo's row mean after gathering the statistic, and gathers "
+             "the statistics into the optimizer state's layout")]
+
+
+# ------------------------------------------------ ssm, hybrid, encdec serving
+# A decode step's row-parallel products (attention's and the MLP's ``wo``,
+# Mamba2's ``out_proj``) part the two sides: the port reads its rows of the
+# weight from their holders and sums its partial output over model, where
+# XLA, at one token a row, keeps the weight's blocks in place, gathers every
+# row's input over data, sums its d/D columns over model and moves the rows
+# back to their data positions by all-to-all.  A prefill's XLA gathers the
+# weight too.  XLA's scan over the hybrid's layers counts the shared
+# attention block's ``lax.cond`` at every layer (``hlo_analysis`` takes a
+# conditional's costlier branch once a trip); the block runs after every
+# ``hybrid_period``-th.
+
+
+def _mask(T: int) -> Move:
+    return Move("the lookup's in-range mask", {},
+                {AG: ag(B * T * 1, DP)},
+                "XLA gathers every row's boolean mask over data")
+
+
+def _row_parallel(what: str, cfg, L_port: int, L_xla: int, k: int, T: int,
+                  stacked: bool = False) -> Move:
+    """A product whose input is split over model, ``k`` columns a
+    position, and whose weight ``(k, d)`` a position is split on d over
+    data (``stacked``: the layer stack over model, so the port reads the
+    other model position's layers from their holders whole)."""
+    d, R = cfg.d_model, B // DP
+    w = k * d
+    held = L_port // MP if stacked else L_port
+    port = {AG: held * ag(w * BF16, DP) + (L_port - held) * w * BF16,
+            AR: L_port * ar(R * T * d * BF16, MP)}
+    if T == 1:
+        xla = {AG: L_xla * ag(B * T * k * F32, DP),
+               AR: L_xla * ar(B * T * (d // DP) * F32, MP),
+               A2A: L_xla * a2a(B * T * (d // DP) * F32, DP)}
+    else:
+        xla = {AG: L_xla * ag(w * F32, DP),
+               AR: L_xla * ar(R * T * d * F32, MP)}
+    if stacked:
+        xla[A2A] = xla.get(A2A, 0) + a2a(L_port * k * (d // DP) * F32, MP)
+    return Move(what, port, xla, "a row-parallel product (see above)" + (
+        "; its layers split over model: XLA reshards the stack to a d_ff "
+        "split by all-to-all" if stacked else ""))
+
+
+def _attn_serve(cfg, L_port: int, L_xla: int, T: int, what: str,
+                kv: bool = True) -> list:
+    """q (and k, v) of its heads gathered over data, and ``wo``."""
+    d, dh = cfg.d_model, cfg.d_head
+    w = d * (cfg.n_heads // MP) * dh \
+        + (2 * d * (cfg.n_kv_heads // MP) * dh if kv else 0)
+    return [Move(f"{what}: q" + (", k, v" if kv else "")
+                 + " gathered over data",
+                 {AG: L_port * ag(w * BF16, DP)},
+                 {AG: L_xla * ag(w * F32, DP)},
+                 "" if kv else "a decode step reads the keys and values the "
+                 "prefill cached: neither side projects them"),
+            _row_parallel(f"{what}: wo", cfg, L_port, L_xla,
+                          (cfg.n_heads // MP) * dh, T)]
+
+
+def _mlp_serve(cfg, L_port: int, L_xla: int, T: int, what: str,
+               gelu: bool, stacked: bool = False) -> list:
+    d, f = cfg.d_model, cfg.d_ff
+    if gelu:
+        wi = Move(f"{what}: wi gathered over data",
+                  {AG: L_port * ag(d * (f // MP) * BF16, DP)},
+                  {AG: L_xla * ag(d * (f // MP) * F32, DP)})
+    else:
+        wi = Move(f"{what}: wi gathered over data",
+                  {AG: L_port * (ag(d * 2 * (f // MP) * BF16, DP)
+                                 + d // DP * (f // MP) * BF16)},
+                  {AG: L_xla * ag(d * 2 * (f // MP) * F32, DP)},
+                  "the port reads the up half's own-data block from the "
+                  "other model position, where XLA swaps the halves by "
+                  "collective-permute (counted as 0)")
+    return [wi, _row_parallel(f"{what}: wo", cfg, L_port, L_xla, f // MP,
+                              T, stacked)]
+
+
+def _mamba_serve(cfg, L: int, T: int) -> list:
+    """Mamba2's layers: SSM heads and d_inner over model, B and C whole."""
+    d, di, H = cfg.d_model, cfg.d_inner, cfg.ssm_heads
+    GN, R, K = cfg.ssm_groups * cfg.ssm_state, B // DP, cfg.ssm_conv
+    zx_dt = d * (di // MP) * 2 + d * (H // MP)
+    return [
+        Move("Mamba2 B and C projections",
+             {AG: 2 * L * ag(d * GN * BF16, DP)},
+             {AG: 2 * L * ag(d * (GN // MP) * F32, DP)},
+             "the port reads them whole (every head reads B and C whole); "
+             "XLA computes its model half of their columns"),
+        Move("Mamba2 z/x and dt projections gathered over data",
+             {AG: L * ag(zx_dt * BF16, DP)}, {AG: L * ag(zx_dt * F32, DP)}),
+        Move("Mamba2 B and C at every head", {},
+             {AG: 2 * L * ag(R * T * GN * F32, MP),
+              A2A: L * (2 * a2a(R * T * (GN // MP) * F32, MP)
+                        + a2a(R * T * GN * F32, MP))},
+             "XLA gathers its halves of B and C over model, and relays them "
+             "into conv_bc's channel split by all-to-all"),
+        Move("Mamba2 conv_bc state: the other model position's channels",
+             {AG: L * R * (K - 1) * (2 * GN // MP) * BF16}, {},
+             "cache_specs split conv_bc's channels over model and the port "
+             "convolves B and C whole; XLA convolves in its own layout"),
+        Move("Mamba2 gated norm's sum of squares over model",
+             {AR: L * ar(R * T * F32, MP)}, {AR: L * ar(R * T * F32, MP)}),
+        _row_parallel("Mamba2 out_proj", cfg, L, L, di // MP, T)]
+
+
+def _family_serve(arch: str, sname: str, cfg) -> list:
+    """A serving step of the ssm, hybrid or encdec family."""
+    T = 1 if KIND[sname] == "decode" else S
+    out = _lookup(cfg, T, False) + [_mask(T)] + _unembed(cfg, False)
+    if cfg.family in ("ssm", "hybrid"):
+        out += _mamba_serve(cfg, cfg.n_layers, T)
+    if cfg.family == "hybrid":
+        inv = cfg.n_layers // cfg.hybrid_period
+        out += (_attn_serve(cfg, inv, cfg.n_layers, T, "shared attention")
+                + _mlp_serve(cfg, inv, cfg.n_layers, T, "shared MLP",
+                             gelu=False))
+    if cfg.family == "encdec":
+        L, Le, Tenc = cfg.n_layers, cfg.n_enc_layers, cfg.frontend_len
+        if T > 1:
+            out += (_attn_serve(cfg, Le, Le, Tenc, "encoder attention")
+                    + _mlp_serve(cfg, Le, Le, Tenc, "encoder MLP", gelu=True,
+                                 stacked=True))
+        out += (_attn_serve(cfg, L, L, T, "self-attention")
+                + _attn_serve(cfg, L, L, T, "cross-attention", kv=T > 1)
+                + _mlp_serve(cfg, L, L, T, "decoder MLP", gelu=True,
+                             stacked=True))
+    return out
+
+
 def ledger(arch: str, sname: str, cfg) -> list:
     """Every collective of the mini cell's step (see above); a train
-    cell's is the gradient step's (``grads_and_metrics``), XLA's too."""
+    cell's is the whole step's, the gradient norm and the optimizer's
+    update after ``grads_and_metrics``, XLA's too."""
     L, d = cfg.n_layers, cfg.d_model
     h = B // DP * S * d
     nc, C_ = S // cfg.ce_chunk, cfg.ce_chunk
@@ -859,28 +1108,37 @@ def ledger(arch: str, sname: str, cfg) -> list:
                         cfg, 2 * L + 1,
                         3 * L * ar(h * F32, MP) + L * ar(h * F32, MP)
                         + nc * ar(B // DP * C_ * d * F32, MP)),
-                    _norms(cfg)]
+                    _norms(cfg), _norms_moves(cfg, 2)]
         return out
     if arch == "qwen3-moe-30b-a3b":
         out = (_lookup(cfg, T, train) + _unembed(cfg, train)
                + _gqa(cfg, passes, train, T)
                + _moe(cfg, L, passes, train, T))
         if train:
+            stack = cfg.n_experts // MP * cfg.d_expert * (d // DP)
             out += [_residual_cotangents(
                         cfg, L + 1,
                         3 * L * ar(h * F32, MP)
                         + L * ar(B * S * (d // DP) * F32, MP)
                         + nc * ar(B // DP * C_ * d * F32, MP)),
-                    _norms(cfg)]
+                    _norms(cfg), _norms_moves(cfg, 2),
+                    Move("MoE wo gradient back for the update", {},
+                         {A2A: a2a(L * stack * F32, DP)},
+                         "XLA reshards the float32 gradient of its d_expert "
+                         "split to the parameter's d split once more, for "
+                         "the update")]
         return out
     if arch == "deepseek-v3-671b" and train:
-        return _deepseek_train(cfg)
+        return (_deepseek_train(cfg) + [_norms_moves(cfg, 1)]
+                + _adafactor(cfg))
     if arch == "deepseek-v3-671b":
         k = cfg.dense_prefix
         return (_lookup(cfg, T, False) + _unembed(cfg, False)
                 + _mla_decode(cfg, L)
                 + _mlp(cfg, k, cfg.dense_d_ff, False, 1, False, T)
                 + _moe(cfg, L - k, 1, False, T))
+    if cfg.family in ("ssm", "hybrid", "encdec") and not train:
+        return _family_serve(arch, sname, cfg)
     raise KeyError(f"no ledger for {arch}/{sname}")
 
 
@@ -894,18 +1152,13 @@ def mini_art(arch, sname):
 def test_collective_bytes_against_xla(jax_side, arch, sname):
     """The cell's :func:`ledger`: its moves' port bytes sum, kind by kind,
     to the port's count a position, and their XLA bytes to XLA's count a
-    device (``analyze_text`` of the compiled step), so that each
-    difference is a named move.  The ssm, hybrid and encdec serving cells
-    have no partitioned step in the port yet (ROADMAP item 14j): their
-    fields are null, and XLA's counts stay the reference for that item."""
+    device (``analyze_text`` of the compiled step; a train cell's whole
+    step, the optimizer update included), so that each difference is a
+    named move."""
     art = mini_art(arch, sname)
     assert art["status"] == "ok", art.get("traceback")
     xla = jax_side["hlo"][f"{arch}/{sname}"]["collective_breakdown"]
     port = art["collective_breakdown_per_position"]
-    if port is None:
-        assert KIND[sname] != "train" and "14j" in art["collective_note"]
-        assert sum(xla.values()) > 0
-        return
     moves = ledger(arch, sname, tiny_config(arch))
     for kind in C.COLLECTIVES:
         assert sum(m.port.get(kind, 0) for m in moves) \
@@ -917,18 +1170,11 @@ def test_collective_bytes_against_xla(jax_side, arch, sname):
 
 @pytest.mark.parametrize("arch,sname", MINI + SERVE_MINI)
 def test_new_artifact_fields(arch, sname):
-    """A train cell and a decoder's serving cell carry the accessed and
-    collective bytes, global (a position's times the chips) and a
+    """Every cell, train or serving of every family, carries the accessed
+    and collective bytes, global (a position's times the chips) and a
     position's; the accessed bytes are at least the position's argument
-    shards.  An ssm, hybrid or encdec serving cell has null and a note."""
+    shards."""
     art = mini_art(arch, sname)
-    fields = ("bytes_accessed", "collective_bytes", "collective_breakdown")
-    cfg = tiny_config(arch)
-    if KIND[sname] != "train" and cfg.family in ("ssm", "hybrid", "encdec"):
-        assert all(art[k] is None and art[k + "_per_position"] is None
-                   for k in fields)
-        assert "14j" in art["collective_note"]
-        return
     if KIND[sname] == "train":
         assert art["collective_note"] == D.TRAIN_NOTE
     else:
@@ -945,20 +1191,21 @@ def test_cli_counts_a_decoder_serving_cell(tmp_path, monkeypatch):
     """``python -m repro_torch.launch.dryrun --arch qwen3-0.6b --shape
     decode_32k`` on the production mesh (256 meta positions, counted as
     the first position's view) writes the accessed and collective bytes;
-    mamba2's decode cell writes null and the note."""
-    for arch, want in (("qwen3-0.6b", True), ("mamba2-780m", False)):
+    so do mamba2's decode cell and zamba2's ``long_500k`` (one row: the
+    context-parallel layout, its attention's partials combined over
+    data)."""
+    for arch, shape in (("qwen3-0.6b", "decode_32k"),
+                        ("mamba2-780m", "decode_32k"),
+                        ("zamba2-7b", "long_500k")):
         monkeypatch.setattr(sys, "argv", [
-            "dryrun", "--arch", arch, "--shape", "decode_32k", "--out",
+            "dryrun", "--arch", arch, "--shape", shape, "--out",
             str(tmp_path)])
         with pytest.raises(SystemExit) as e:
             D.main()
         assert e.value.code == 0
-        art = json.load(open(tmp_path / f"{arch}__decode_32k.pod16x16.json"))
+        art = json.load(open(tmp_path / f"{arch}__{shape}.pod16x16.json"))
         assert art["status"] == "ok" and art["chips"] == 256
-        if want:
-            assert art["collective_bytes"] > 0 and art["bytes_accessed"] > 0
-            assert set(art["collective_breakdown"]) >= {"all-gather",
-                                                        "all-reduce"}
-        else:
-            assert art["collective_bytes"] is None
-            assert "14j" in art["collective_note"]
+        assert art["collective_bytes"] > 0 and art["bytes_accessed"] > 0
+        assert set(art["collective_breakdown"]) >= {"all-gather",
+                                                    "all-reduce"}
+        assert "collective_note" not in art

@@ -20,8 +20,15 @@
   all-gather and their gradient as a reduce-scatter, and a replicated
   block's gradient as an all-reduce over its holders;
 * a meta mesh's ``first_position()`` view counts what the whole mesh's
-  mean counts, for a train step and a serving step of each decoder
-  family (the dry run counts the production meshes that way);
+  mean counts, for a train step (the optimizer update included) and a
+  serving step of every family, the context-parallel layout too (the
+  dry run counts the production meshes that way);
+* the optimizer's folds over blocks held at other positions count one
+  all-reduce of the fold's result over the positions whose blocks it
+  folds: AdamW's norm over a leaf split two ways, Adafactor's row,
+  column, row-mean and update-RMS sums over a leaf split both ways; a
+  leaf whose blocks are all at one position moves nothing, and the
+  update's results equal the unplaced update's;
 * ``analyze_step`` and ``traffic_breakdown`` return ``analyze_text``'s
   and ``traffic_breakdown``'s shapes.
 
@@ -41,7 +48,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.config import ShapeSpec
 from repro_torch.sharding import counters
 from repro_torch.sharding.placement import (NamedSharding, device_put,
-                                            read_region)
+                                            gather, read_region)
 from repro_torch.sharding.rules import PartitionSpec as P
 
 
@@ -235,25 +242,37 @@ def tiny(arch: str):
         remat=True, grad_accum=1, attn_chunk=16, ce_chunk=32)
 
 
-@pytest.mark.parametrize("arch,kind", [
-    ("qwen3-0.6b", "train"), ("qwen3-moe-30b-a3b", "train"),
-    ("qwen3-0.6b", "prefill"), ("deepseek-v3-671b", "decode"),
-    ("qwen3-moe-30b-a3b", "decode"), ("internvl2-76b", "prefill")])
-def test_first_position_counts_the_whole_mesh(monkeypatch, arch, kind):
+@pytest.mark.parametrize("arch,kind,rows", [
+    ("qwen3-0.6b", "train", 8), ("qwen3-moe-30b-a3b", "train", 8),
+    ("deepseek-v3-671b", "train", 8),
+    ("qwen3-0.6b", "prefill", 8), ("deepseek-v3-671b", "decode", 8),
+    ("qwen3-moe-30b-a3b", "decode", 8), ("internvl2-76b", "prefill", 8),
+    ("mamba2-780m", "decode", 8), ("zamba2-7b", "prefill", 8),
+    ("whisper-large-v3", "prefill", 8), ("whisper-large-v3", "decode", 8),
+    ("zamba2-7b", "decode", 1), ("mamba2-780m", "decode", 1)])
+def test_first_position_counts_the_whole_mesh(monkeypatch, arch, kind,
+                                              rows):
     """The dry run's view of a meta mesh from its first position gives the
     collective bytes of each kind that the mean over all its positions
     gives; a serving step's accessed bytes too (a train step's differ by
-    the gradient sums autograd makes across positions)."""
+    the gradient sums autograd makes across positions).  One row: the
+    context-parallel layout, where only the positions holding the decode
+    step's time block write its keys and values, so the first position's
+    accessed bytes differ from the mean by their share of those writes."""
     mesh = FilterMesh([["meta"] * 2] * 4)
-    cell = Cell(arch, ShapeSpec("mini", 64, 8, kind), True)
+    cell = Cell(arch, ShapeSpec("mini", 64, rows, kind), True)
     one = D.partitioned_counts(cell, mesh, tiny(arch))
     monkeypatch.setattr(FilterMesh, "first_position", lambda self: self)
     every = D.partitioned_counts(cell, mesh, tiny(arch))
     assert one["collective_breakdown"] == every["collective_breakdown"]
     assert one["collective_bytes_per_device"] > 0
-    if kind != "train":
+    if kind != "train" and rows % 4 == 0:
         assert one["traffic_bytes_per_device"] \
             == every["traffic_bytes_per_device"]
+        assert one["flops_per_device"] == every["flops_per_device"]
+    elif kind != "train":
+        assert one["traffic_bytes_per_device"] == pytest.approx(
+            every["traffic_bytes_per_device"], rel=0.01)
         assert one["flops_per_device"] == every["flops_per_device"]
     else:
         assert one["traffic_bytes_per_device"] == pytest.approx(
@@ -283,3 +302,71 @@ def test_analyze_step_and_traffic_breakdown_shapes():
     rows = C.traffic_breakdown(step, top=5)
     assert [k for k, _ in rows] == ["mm", "collective"]
     assert rows[0][1] == 4 * (2 * 3 + 3 * 4 + 2 * 4) * 4
+
+
+def _placed(mesh, spec, t):
+    return device_put({"w": t}, NamedSharding(mesh, spec))["w"]
+
+
+@pytest.mark.parametrize("spec,g", [(P("data", None), 2),
+                                    (P("data", "model"), 4), (P(), 1)])
+def test_adamw_norm_counts_a_fold_over_the_blocks(spec, g):
+    """AdamW's clip takes the gradients' global norm: a leaf cut into ``g``
+    blocks folds its blocks' square sums, a float32 scalar all-reduced
+    over the ``g`` positions holding them; a leaf whose every block is at
+    one position moves nothing.  The update equals the unplaced one."""
+    from repro_torch.train.optimizer import make_adamw
+
+    mesh = grid((2, 2))
+    gen = torch.Generator().manual_seed(0)
+    w = torch.randn(8, 6, generator=gen)
+    grad = torch.randn(8, 6, generator=gen)
+    opt = make_adamw()
+    plain = {"w": w.clone()}
+    plain_state = opt.init(plain)
+    opt.update({"w": grad}, plain_state, plain, 0)
+    params = {"w": _placed(mesh, spec, w)}
+    state = {k: [_placed(mesh, spec, torch.zeros(8, 6))] for k in "mv"}
+    with C.CollectiveCounter() as c:
+        opt.update({"w": _placed(mesh, spec, grad)}, state, params, 0)
+    want = C.collective_wire_bytes("all-reduce", 4, g)
+    for idx in mesh.positions():
+        assert c.by_position.get(idx, {}) == (
+            {"all-reduce": want} if g > 1 else {})
+    assert torch.equal(gather(params["w"]), plain["w"])
+
+
+def test_adafactor_counts_its_factored_folds():
+    """Adafactor on a (8, 6) leaf split over ``"data"`` on its rows and
+    ``"model"`` on its columns: the row sums fold the 2 column blocks
+    (a (4,) float32 result), the column sums the 2 row blocks ((3,)), the
+    row statistic's mean the 2 row blocks (a scalar) and the update's
+    RMS all 4 blocks (a scalar); each an all-reduce a position.  A
+    (8,) leaf split over ``"data"``: its update's RMS only.  The update
+    equals the unplaced one."""
+    from repro_torch.train.optimizer import make_adafactor
+
+    mesh = grid((2, 2))
+    gen = torch.Generator().manual_seed(1)
+    ws = {"a": torch.randn(8, 6, generator=gen),
+          "b": torch.randn(8, generator=gen)}
+    gs = {k: torch.randn(v.shape, generator=gen) for k, v in ws.items()}
+    opt = make_adafactor()
+    plain = {k: v.clone() for k, v in ws.items()}
+    opt.update(gs, opt.init(plain), plain, 3)
+    specs = {"a": P("data", "model"), "b": P("data")}
+    params = {k: _placed(mesh, specs[k], v) for k, v in ws.items()}
+    state = {"stats": [
+        {"vr": _placed(mesh, P("data"), torch.zeros(8)),
+         "vc": _placed(mesh, P("model"), torch.zeros(6))},
+        {"v": _placed(mesh, P("data"), torch.zeros(8))}]}
+    with C.CollectiveCounter() as c:
+        opt.update({k: _placed(mesh, specs[k], v) for k, v in gs.items()},
+                   state, params, 3)
+    ar = lambda b, g: C.collective_wire_bytes("all-reduce", b, g)  # noqa: E731
+    want = ar(4 * 4, 2) + ar(3 * 4, 2) + ar(4, 2) + ar(4, 4) + ar(4, 2)
+    for idx in mesh.positions():
+        assert c.by_position[idx] == {"all-reduce": want}
+    for k in ws:
+        assert torch.allclose(gather(params[k]), plain[k], rtol=0,
+                              atol=1e-7), k

@@ -1639,6 +1639,13 @@ SERVE_SHARDED_ON_CARD = {
     "deepseek-v3-671b": ("deepseek-v3-671b", {"capacity_factor": 4.0},
                          4, 16),
     "internvl2-76b": ("internvl2-76b", {}, 4, 16),
+    "mamba2-780m": ("mamba2-780m", {}, 4, 16),
+    "zamba2-7b": ("zamba2-7b", {}, 4, 16),
+    "whisper-large-v3": ("whisper-large-v3", {}, 4, 16),
+    # one row: the context-parallel layout, a 16-token cache split over
+    # time on "data", the prompt in both blocks, the steps in the second
+    "zamba2-7b-context-parallel": ("zamba2-7b", {}, 1, 12),
+    "mamba2-780m-one-row": ("mamba2-780m", {}, 1, 12),
 }
 
 
@@ -1669,6 +1676,9 @@ def test_sharded_serving_on_card_grid(cuda, no_tf32, name):
         np.int32)}
     if cfg.family == "vlm":
         batch["patches"] = rng.normal(
+            size=(rows, cfg.frontend_len, cfg.d_model)).astype(np.float32)
+    if cfg.family == "encdec":
+        batch["frames"] = rng.normal(
             size=(rows, cfg.frontend_len, cfg.d_model)).astype(np.float32)
     feed = rng.integers(0, cfg.vocab, (3, rows, 1)).astype(np.int32)
     off = seq + (cfg.frontend_len if cfg.family == "vlm" else 0)

@@ -24,9 +24,10 @@ layers, parameters placed by ``param_specs`` and float32 caches by
   caches within 1e-5; ``qwen3-moe-drops`` (the published capacity, a
   128-token prefill whose dispatch drops assignments, so that its logits
   part from the one-device step's) is held to JAX only, whose
-  expert-parallel dispatch drops the same ones;
-* the ssm, hybrid and encdec families raise ``NotImplementedError``
-  naming ROADMAP item 14j.
+  expert-parallel dispatch drops the same ones.
+
+The ssm, hybrid and encdec families and the context-parallel layout:
+``tests/test_torch_sharded_serve_families.py``.
 
 JAX's side runs once, in one subprocess with 8 forced host devices.
 """
@@ -306,21 +307,3 @@ def test_the_drops_case_drops(jax_side):
     got = run_sharded(cfg, params, "qwen3-moe-drops", make_grid("2x2"))
     want = run_one_device(cfg, params, "qwen3-moe-drops")
     assert rel(got[0][0], want[0][0]) > 1e-3
-
-
-@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-7b",
-                                  "whisper-large-v3"])
-def test_other_families_raise(arch):
-    cfg = get_config(arch, reduced=True)
-    mesh = make_grid("2x2")
-    params = device_put(T.init_model(cfg, torch.Generator().manual_seed(0)),
-                        named(mesh, R.param_specs(
-                            cfg, T.init_model(cfg, None), mesh)))
-    caches = T.init_cache(cfg, 2, 8, dtype=torch.float32)
-    caches = device_put(caches, named(mesh, R.cache_specs(cfg, caches,
-                                                          mesh)))
-    tok = np.zeros((2, 4), np.int32)
-    with pytest.raises(NotImplementedError, match="14j"):
-        prefill_sharded(cfg, params, {"tokens": tok}, caches, mesh)
-    with pytest.raises(NotImplementedError, match="14j"):
-        decode_step_sharded(cfg, params, tok[:, :1], caches, 4, mesh)
