@@ -208,11 +208,16 @@ printed as it runs; any failure exits non-zero:
    the reference is the sharded step with its positions one after
    another); (d) the same, timed, for the ssm, hybrid and encdec
    families at their published widths on the same grid and ingest:
-   mamba2-780m whole (48 layers, ``remat``) at 2 x 2,048 tokens,
-   zamba2-7b with 12 of its 81 layers (two invocations of the shared
-   attention block, ``grad_accum`` 2) at 4 x 2,048, and
+   mamba2-780m with 24 of its 48 layers (``remat``) at 2 x 2,048
+   tokens, zamba2-7b with 12 of its 81 layers (two invocations of the
+   shared attention block, ``grad_accum`` 2) at 4 x 2,048, and
    whisper-large-v3 with 8 of its 32 encoder and 8 of its 32 decoder
-   layers at 4 x 448 tokens and 1,500 frames a row from seed 0; (a) also
+   layers at 4 x 448 tokens and 1,500 frames a row from seed 0, each also
+   as a float64 sharded step against the float64 one-device step with
+   the model's float32 islands lifted (``float64_throughout``), zamba2
+   on the first 1,024 tokens of each row: every gathered leaf within
+   1/100 of the bound, beside the float32 one-device step's distance on
+   the same tokens; (a) also
    counts the accessed and collective bytes of the two ``train_4k``
    cells' partitioned steps and of qwen3-0.6b's ``prefill_32k`` and
    ``decode_32k`` cells at 16 x 16 (``launch.cost_analysis``);
@@ -227,7 +232,16 @@ printed as it runs; any failure exits non-zero:
    dispatch) and 4 x 640 (the shard-map dispatch), 8 decode steps each
    (stationary), ``capacity_factor`` 16 so that no dispatch drops an
    assignment; (c) deepseek-v3-671b's MLA at its widths with its 3 dense
-   prefix layers, 8 x 128 tokens and 8 decode steps.  Each case: prefill
+   prefix layers, 8 x 128 tokens and 8 decode steps; (d) mamba2-780m
+   whole, (e) zamba2-7b's 12 layers, (f) whisper-large-v3's 8 + 8, each
+   8 x 128 tokens (whisper: 8 x 64 and 1,500 frames); and one row, whose
+   8,192-token cache the data positions split over time (the
+   context-parallel layout): (g) zamba2-7b's 12 layers, (h) deepseek-v3's
+   3 MLA layers (``c_kv``/``k_rope`` attended block by block), (i)
+   qwen3-moe's 2 layers at ``capacity_factor`` 16 (the 6,144-token
+   prompt's MoE layers take the shard-map dispatch, 3,072 tokens a data
+   position), each a 6,144-token prompt and 8 decode steps in the second
+   time block.  Each case: prefill
    and decode ms (CUDA events) beside the one-device step's, kernels and
    busy ms a step (``torch.profiler``), peak memory beside the bytes a
    position, and the collective bytes of each kind that
@@ -241,6 +255,7 @@ printed as it runs; any failure exits non-zero:
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -387,6 +402,21 @@ SHARDED_FAMILY_CASES = (
     ("zamba2-7b", 12, 4, 2048, {}),
     ("whisper-large-v3", 8, 4, 448, {}),
 )
+# (d) also holds a float64 sharded step to the float64 one-device step,
+# with the model's float32 islands (norms, SiLU, the SSD state carry, the
+# loss's softmax) lifted to float64 (float64_throughout): every gathered
+# leaf within this share of phase 12(a)'s bound.  With the islands in
+# place the sharded step sums some of them in another order (the gated
+# norm's sum of squares over "model", the vocab-parallel log-sum-exp), and
+# the two float64 steps part at float32 rounding; lifted, only the sharded
+# step's final rounding to float32 gradients (6e-8 relative) remains
+EXACT64_SHARE = 1e-2
+# the float64 sharded step of zamba2's 12 layers at 4 x 2,048 tokens holds
+# more than the card (out of memory at 79 GiB, beside the case's float32
+# and float64 trees): (d)'s float64 check runs all 12 layers (both
+# invocations of the shared block) on the first 1,024 tokens of each row,
+# the shape at which the float32 check once failed its 1.5x margin
+EXACT64_TOKENS = {"zamba2-7b": 1024}
 
 # phase 15, the partitioned prefill and decode on phase 13's grid: (name,
 # arch, layers kept (0: all; encdec: each stack), overrides, prefill cases
@@ -399,7 +429,13 @@ SHARDED_FAMILY_CASES = (
 # stub); (g) zamba2-7b's 12 layers on one row, whose 8,192-token cache
 # the data positions split over time (the context-parallel layout of
 # long_500k): the 6,144-token prompt fills both time blocks, the decode
-# steps write and attend in the second
+# steps write and attend in the second; (h) deepseek-v3-671b's 3 dense MLA
+# layers on one row, its 8,192-token c_kv/k_rope cache split over time
+# (MLA attended block by block: the prompt in the expanded form, the
+# decode steps in the absorbed form), as (g); (i) qwen3-moe-30b-a3b's 2
+# layers on one row, as (g), whose MoE layers count the row once: the
+# 6,144-token prompt takes the shard-map dispatch (3,072 tokens a data
+# position), the decode steps the weights-stationary one
 SERVE_SHARDED_CASES = (
     ("a", LM_ARCH, 0, {}, ((8, 128, None, None),), 32),
     ("b", MOE_ARCH, 2, {"capacity_factor": 16.0},
@@ -409,6 +445,9 @@ SERVE_SHARDED_CASES = (
     ("e", "zamba2-7b", 12, {}, ((8, 128, None, None),), 8),
     ("f", "whisper-large-v3", 8, {}, ((8, 64, None, None),), 8),
     ("g", "zamba2-7b", 12, {}, ((1, 6144, None, 8192),), 8),
+    ("h", "deepseek-v3-671b", 3, {}, ((1, 6144, None, 8192),), 8),
+    ("i", MOE_ARCH, 2, {"capacity_factor": 16.0},
+     ((1, 6144, "shardmap", 8192),), 8),
 )
 SERVE_SHARDED_TOL = 2e-4
 # the 14(a) serving cells whose partitioned steps' bytes are counted
@@ -3700,16 +3739,73 @@ def leaf_ratios(got, want, rtol: float, atol: float) -> list:
     return rows
 
 
+def float64_grads(cfg, p64, batch, grid=None, lifted: bool = False):
+    """The float64 step's gradients of float64 parameters ``p64``,
+    accumulated in float64: the one-device step's, or with ``grid`` the
+    sharded step's (float32, as the sharded step returns them, placed);
+    ``lifted``: under
+    :func:`repro_torch.models.layers.float64_throughout`."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import float64_throughout
+    from repro_torch.sharding import rules as R
+    from repro_torch.sharding.placement import NamedSharding, device_put
+    from repro_torch.train.train_step import grads_and_metrics
+    from repro_torch.tree import tree_map_with_path
+
+    c64 = cfg.with_(param_dtype="float64", activ_dtype="float64",
+                    grad_accum_dtype="float64")
+    tree = p64
+    if grid is not None:
+        specs = R.param_specs(cfg, T.init_model(cfg, None), grid)
+        tree = device_put(p64, tree_map_with_path(
+            lambda _, s: NamedSharding(grid, s), specs, is_leaf=R.is_spec))
+    with float64_throughout() if lifted else contextlib.nullcontext():
+        return grads_and_metrics(c64, tree, batch)[0]
+
+
+def to_host(tree):
+    """``tree``'s leaves (placed leaves gathered) copied to the host, so
+    that a reference waits off the card while the next step runs."""
+    from repro_torch.sharding.placement import PlacedTensor, gather
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda x: (gather(x) if isinstance(x, PlacedTensor)
+                               else x).cpu(), tree)
+
+
+def host_ratios(got, ref_host, dev) -> list:
+    """:func:`leaf_ratios` of ``got`` against a reference kept on the
+    host, the reference copied back for the comparison only."""
+    from repro_torch.tree import tree_map
+
+    ref = tree_map(lambda x: x.to(dev), ref_host)
+    rows = leaf_ratios(got, ref, TRAIN_GRAD_RTOL, TRAIN_GRAD_ATOL)
+    del ref
+    torch.cuda.empty_cache()
+    return rows
+
+
+def worst_leaf(rows: list) -> tuple:
+    """The ``(path, ratio, max difference)`` of :func:`leaf_ratios`' rows
+    with the largest ratio."""
+    return max(rows, key=lambda r: r[1])
+
+
 def sharded_case(what: str, cfg, pipe, grid, dev, *, timed: bool,
                  drops_shards: int | None = None,
-                 stationary: bool = False, frames=None) -> dict:
+                 stationary: bool = False, frames=None,
+                 exact64: bool = False) -> dict:
     """One model on the grid: the one-device step's gradients, then the
     sharded step's (held to them), the updates from the same gradients
     (held), a second step through both step functions (losses held), the
     shardings kept; then, with the one-device copies freed, timed steps
     (CUDA events), the card's busy share and peak memory, beside the dry
     run's estimate for this mesh and shape.  ``frames``: an
-    encoder-decoder's two batches' frames, added to the pipeline's."""
+    encoder-decoder's two batches' frames, added to the pipeline's.
+    ``exact64``: also the float64 sharded step against the float64
+    one-device step, the float32 islands lifted (:func:`float64_grads`),
+    on ``EXACT64_TOKENS`` tokens a row where it names the model, every
+    leaf within ``EXACT64_SHARE`` of the bound."""
     from repro_torch.launch import dryrun as D
     from repro_torch.launch.cells import Cell
     from repro_torch.models.config import ShapeSpec
@@ -3754,6 +3850,39 @@ def sharded_case(what: str, cfg, pipe, grid, dev, *, timed: bool,
         out["loss64"] = float(m64["loss"])
         g1, m1 = grads_and_metrics(cfg, params, b0)
         one = leaf_ratios(g1, g64, TRAIN_GRAD_RTOL, TRAIN_GRAD_ATOL)
+        if exact64:
+            # the float64 pair with the islands lifted, the one-device
+            # step's gradients on the host while the sharded step runs
+            t = time.perf_counter()
+            keep = to_host((g1, g64))
+            del g1, g64
+            n = EXACT64_TOKENS.get(cfg.name, seq)
+            bx = {**b0, "tokens": b0["tokens"][:, :n],
+                  "labels": b0["labels"][:, :n]}
+            px = tree_map_with_path(lambda _, x: x.double(), params)
+            ref = to_host(float64_grads(cfg, px, bx, lifted=True))
+            torch.cuda.empty_cache()
+            got = float64_grads(cfg, px, bx, grid, lifted=True)
+            del px
+            out["exact64"] = worst_leaf(host_ratios(got, ref, dev))
+            del got
+            torch.cuda.empty_cache()
+            out["exact64_tokens"] = n
+            # the float32 one-device step on the same tokens, against it
+            g1x = (grads_and_metrics(cfg, params, bx)[0] if n < seq else
+                   tree_map_with_path(lambda _, x: x.to(dev), keep[0]))
+            out["one_exact64"] = worst_leaf(host_ratios(g1x, ref, dev))
+            del g1x, ref
+            torch.cuda.empty_cache()
+            g1, g64 = (tree_map_with_path(lambda _, x: x.to(dev), x)
+                       for x in keep)
+            del keep
+            out["exact64_s"] = time.perf_counter() - t
+            check(out["exact64"][1] <= EXACT64_SHARE,
+                  f"{what}: the float64 sharded step's leaf "
+                  f"{out['exact64'][0]} is {out['exact64'][1]:.3g} of the "
+                  f"bound from the float64 one-device step's (float32 "
+                  f"islands lifted; at most {EXACT64_SHARE})")
         g1 = g64
         del g64
         torch.cuda.empty_cache()
@@ -4053,7 +4182,7 @@ def sharded_families(grid, dev) -> tuple[dict, dict, float]:
         reset_counts()
         t = time.perf_counter()
         r = sharded_case(f"(d) {arch}", cfg, pipe, grid, dev, timed=True,
-                         frames=frames)
+                         frames=frames, exact64=True)
         r["s"] = time.perf_counter() - t
         step_counts = counts()
         check(not any(step_counts.values()),
@@ -4091,6 +4220,17 @@ def report_case(what: str, r: dict) -> None:
                  f"{r['one_ratio']:.3g} (every leaf within the bound or 1.5 "
                  f"times the one-device step's); the float64 loss "
                  f"{r['loss64']:.7f}")
+        if "exact64" in r:
+            grads += (
+                f"; float32 islands lifted, on {r['exact64_tokens']} "
+                f"tokens a row, the float64 sharded step's farthest leaf "
+                f"({r['exact64'][0]}) at {r['exact64'][1]:.3g} of the bound "
+                f"({r['exact64'][2]:.3g}) from the float64 one-device "
+                f"step's (at most {EXACT64_SHARE}), the float32 one-device "
+                f"step's farthest ({r['one_exact64'][0]}) at "
+                f"{r['one_exact64'][1]:.3g}: "
+                f"{r['one_exact64'][1] / max(r['exact64'][1], 1e-300):.3g}"
+                f" times ({r['exact64_s']:.1f} s)")
     else:
         grads = (f"gathered gradients within {r['grad_diff']:.2e} of "
                  f"{r['ref']}'s ({r['grad_ratio']:.3f} of the bound)")
@@ -4231,7 +4371,7 @@ def serve_case(what: str, cfg, params, grid, dev, rows: int, prompt_len: int,
     if rows % MESH_LM_DATA:
         # the context-parallel layout: attention's caches split over time
         split = [x.sharding.spec for p, x in tree_flatten_with_path(pc)
-                 if p[-1] in ("k", "v")]
+                 if p[-1] in ("k", "v", "c_kv", "k_rope")]
         check(split and all(tuple(sp)[2] == "data" for sp in split),
               f"{what}: {rows} rows, attention's caches placed {split}")
         out["layout"] = str(split[0])

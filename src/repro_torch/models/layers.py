@@ -54,6 +54,25 @@ def pdtype_of(cfg: ModelConfig) -> torch.dtype:
     return _dtype(cfg.param_dtype)
 
 
+@contextlib.contextmanager
+def float64_throughout():
+    """``Tensor.float`` keeps a float64 tensor float64 (other dtypes cast
+    as before), so that a float64 model's float32 islands (the norms, the
+    gated norm, SiLU, the SSD state carry, the loss's softmax) compute in
+    float64: the checks that hold a partitioned float64 step to the
+    one-device float64 step, every sum in float64 on both sides."""
+    cast = torch.Tensor.float
+
+    def keep(self, *args, **kwargs):
+        return self if self.dtype == torch.float64 else cast(self, *args,
+                                                             **kwargs)
+    torch.Tensor.float = keep
+    try:
+        yield
+    finally:
+        torch.Tensor.float = cast
+
+
 def einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
     """``torch.einsum`` on operands promoted to their common dtype, as
     ``jnp.einsum`` promotes them."""

@@ -36,13 +36,14 @@ Storage follows the specs, compute follows the layer kind:
 
 A batch the data positions do not divide (``long_500k``'s one row) takes
 the context-parallel layout ``cache_specs`` gives it: no cache leaf
-splits its rows, every data position computes every row, a ``k``/``v``
-cache split over time on ``"data"`` is written at the holder of each
-token's time block and attended block by block, the blocks' softmax
-partials combined over ``"data"`` (``_Positions.attend_blocks``).
-Under any other layout such a batch raises ``ValueError``, as do the
-layouts no cell of the zoo runs (an MLA cache split over time, a MoE
-layer on rows every data position repeats).
+splits its rows, every data position computes every row, a cache split
+over time on ``"data"`` (``k``/``v``, or MLA's ``c_kv``/``k_rope``) is
+written at the holder of each token's time block and attended block by
+block, the blocks' softmax partials combined over ``"data"``
+(``_Positions.attend_blocks``), and a MoE layer counts the rows once and
+takes the dispatch the JAX layer takes at that count (the shard-map
+dispatch: each data position its even share of the tokens, the outputs
+gathered).  Under any other layout such a batch raises ``ValueError``.
 
 The logits of the last position come back whole, one tensor on the
 first position's device, as ``out_shardings=None`` hands the caller a
@@ -51,6 +52,7 @@ place.
 """
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
@@ -83,8 +85,7 @@ def decode_step_sharded(cfg: ModelConfig, params: Any, tokens, caches: Any,
                  int(cache_pos))
 
 
-def _check(cfg: ModelConfig, params, caches, mesh, rows: int,
-           dp_size: int) -> bool:
+def _check(cfg: ModelConfig, params, caches, mesh, rows: int) -> bool:
     """Whether the step runs context-parallel (every data position every
     row); raises where the placement or the layout cannot run."""
     for what, tree in (("parameter", params), ("cache", caches)):
@@ -93,6 +94,7 @@ def _check(cfg: ModelConfig, params, caches, mesh, rows: int,
                     or leaf.sharding.mesh is not mesh:
                 raise ValueError(f"a sharded serving step needs every "
                                  f"{what} placed on the mesh")
+    dp_size = math.prod(mesh.shape.get(a, 1) for a in ("pod", "data"))
     if rows % dp_size == 0:
         return False
     for path, leaf in tree_flatten_with_path(caches):
@@ -101,19 +103,16 @@ def _check(cfg: ModelConfig, params, caches, mesh, rows: int,
             raise ValueError(f"{rows} rows over {dp_size} data positions, "
                              f"and the cache {'/'.join(map(str, path))} "
                              f"splits its rows ({leaf.sharding.spec})")
-    if cfg.n_experts:
-        raise ValueError(f"{rows} rows over {dp_size} data positions: the "
-                         f"MoE layer takes each data position's own rows")
     return True
 
 
 def _step(cfg: ModelConfig, params, batch: dict, caches, mesh,
           cache_pos: int | None):
-    pos = _Positions(cfg, mesh, None, True)
+    b = len(batch["tokens"])
+    every = _check(cfg, params, caches, mesh, b)
+    pos = _Positions(cfg, mesh, None, True, every)
     dev0 = pos.dev(pos.pos[0])
     batch = {k: torch.as_tensor(v, device=dev0) for k, v in batch.items()}
-    b = batch["tokens"].shape[0]
-    every = _check(cfg, params, caches, mesh, b, pos.dp_size)
     rows = b if every else b // pos.dp_size
     local = {idx: {k: v[0 if every else pos.d(idx) * rows:][:rows].to(
         pos.dev(idx)) for k, v in batch.items()} for idx in pos.pos}

@@ -69,8 +69,12 @@ from ..tree import tree_leaves, tree_map, tree_unflatten
 class _Positions:
     """One microbatch's forward over the positions of ``mesh``."""
 
-    def __init__(self, cfg: ModelConfig, mesh, live: dict, streams: bool):
+    def __init__(self, cfg: ModelConfig, mesh, live: dict, streams: bool,
+                 every: bool = False):
         self.cfg, self.mesh, self.live, self.streams = cfg, mesh, live, streams
+        # every data position holds every row, not rows of its own (a
+        # context-parallel serving step)
+        self.every = every
         self.pos = mesh.positions()
         names = mesh.axis_names
         self.dp = tuple(a for a in ("pod", "data") if a in names)
@@ -268,9 +272,9 @@ class _Positions:
         cache split over time (the context-parallel layout) is attended
         block by block: each data position over its own time block, the
         blocks' maxima, exp-sums and weighted values combined over
-        ``"data"`` (:meth:`attend_blocks`).  A prefill's cross-attention
-        attends with the fresh float keys and values, as the one-device
-        layer does."""
+        ``"data"`` (:meth:`attend_blocks`), MLA's latents as ``k``/``v``.
+        A prefill's cross-attention attends with the fresh float keys and
+        values, as the one-device layer does."""
         cfg = self.cfg
         l = h[self.pos[0]].shape[1]
         off = cache_pos if l == 1 and cache_pos is not None else 0
@@ -279,9 +283,6 @@ class _Positions:
         names = ("c_kv", "k_rope") if cfg.mla else ("k", "v")
         leaves = [cache[k] for k in names]
         split = leaves[0].sharding.parts(leaves[0].ndim)[2] > 1
-        if cfg.mla and split:
-            raise ValueError("an MLA cache split over time: no cell of the "
-                             "zoo runs one")
         q, rows, fresh, written = {}, {}, {}, set()
         writes = not cross or cache_pos is None
         for idx in self.pos:
@@ -357,24 +358,33 @@ class _Positions:
                       cross: bool) -> dict:
         """Attention on a cache split over time over ``"data"``: each
         position attends its queries to its own time block (its query
-        heads' KV heads, blocks it does not hold from their holders),
-        keeps the block's maxima, exp-sums and unnormalised weighted
-        values (:func:`_attend_part`), and the blocks combine over
-        ``"data"``: a ``pmax`` of the maxima, then sums of the exp-sums
-        and of the weighted values, each rescaled by ``exp(m - max)``
-        (a block with no valid key: ``-1e30`` against the maximum, so 0).
-        Then the head mask and ``wo``."""
+        heads' KV heads, or MLA's whole latent, blocks it does not hold
+        from their holders), keeps the block's maxima, exp-sums and
+        unnormalised weighted values (:func:`_attend_part`,
+        :func:`_mla_part`), and the blocks combine over ``"data"``: a
+        ``pmax`` of the maxima, then sums of the exp-sums and of the
+        weighted values, each rescaled by ``exp(m - max)`` (a block with
+        no valid key: ``-1e30`` against the maximum, so 0).  Then MLA's
+        decode form applies ``w_uv``, and the head mask and ``wo``
+        follow."""
+        mla = self.cfg.mla
         parts = {}
         for idx in self.pos:
             acfg, p, hm = aw[idx]
-            lo, n = self.kv_read(idx)
             own = leaves[0].sharding.slices(leaves[0].shape, idx)[2]
-            kvs = [read_region(x, (ci, rows[idx], own, slice(lo, lo + n)),
-                               self.dev(idx), position=idx) for x in leaves]
-            with self.on(idx, *kvs):
-                parts[idx] = _attend_part(acfg, q[idx], *kvs,
-                                          positions[idx], own.start, limit,
-                                          cross)
+            region = (ci, rows[idx], own)
+            if not mla:
+                lo, n = self.kv_read(idx)
+                region = region + (slice(lo, lo + n),)
+            kvs = [read_region(x, region, self.dev(idx), position=idx)
+                   for x in leaves]
+            with self.on(idx, *kvs, *tree_leaves(p)):
+                parts[idx] = (_mla_part(acfg, p, *q[idx], *kvs,
+                                        positions[idx], own.start, limit)
+                              if mla else
+                              _attend_part(acfg, q[idx], *kvs,
+                                           positions[idx], own.start, limit,
+                                           cross))
         mx = L._pmax(self.mesh, {i: t[0] for i, t in parts.items()},
                      ("data",), self.streams)
         se, wv = {}, {}
@@ -391,7 +401,9 @@ class _Positions:
             with self.on(idx, *tree_leaves(p), hm):
                 b, l, kvh, g, dh = wv[idx].shape
                 ctx = (wv[idx] / se[idx].permute(0, 2, 1, 3)[..., None]).to(
-                    leaves[1].dtype).reshape(b, l, kvh * g, dh)
+                    leaves[0 if mla else 1].dtype).reshape(b, l, kvh * g, dh)
+                if mla and l == 1:
+                    ctx = L.einsum("blhr,rhv->blhv", ctx, p["w_uv"])
                 hm = L._head_mask(acfg, ctx.device) if hm is None else hm
                 if hm is not None:
                     ctx = ctx * hm[None, None, :, None].to(ctx.dtype)
@@ -432,18 +444,27 @@ class _Positions:
         takes each data position's own rows (or, where they do not split
         the tokens evenly, the even token share the JAX dispatch takes);
         the weights-stationary dispatch, and the single-device path where
-        neither applies, take every row gathered."""
+        neither applies, take every row gathered.  Where every data
+        position holds every row (``every``), the rows count once, the
+        shard-map dispatch takes the position's even share of them and
+        gathers the outputs, and the other branches gather nothing."""
         cfg, mesh = self.cfg, self.mesh
         first = self.pos[0]
         bl, d = hs[first].shape[1], hs[first].shape[2]
-        ran = {self.d(idx): hs[idx].shape[0] for idx in self.pos}
-        # a data position the mesh does not run (FilterMesh.first_position)
-        # has the first's rows: a meta mesh is symmetric
-        rows = {k: ran.get(k, ran[self.d(first)])
-                for k in range(self.dp_size)}
-        n = sum(rows.values()) * bl
+        if self.every:
+            rows = dict.fromkeys(range(self.dp_size), hs[first].shape[0])
+            start = dict.fromkeys(rows, 0)
+            n = rows[0] * bl
+        else:
+            ran = {self.d(idx): hs[idx].shape[0] for idx in self.pos}
+            # a data position the mesh does not run
+            # (FilterMesh.first_position) has the first's rows: a meta
+            # mesh is symmetric
+            rows = {k: ran.get(k, ran[self.d(first)])
+                    for k in range(self.dp_size)}
+            n = sum(rows.values()) * bl
+            start = {k: sum(rows[j] for j in range(k)) * bl for k in rows}
         own = {idx: hs[idx].reshape(-1, d) for idx in self.pos}
-        start = {k: sum(rows[j] for j in range(k)) * bl for k in rows}
         names = mesh.axis_names
         data_size = mesh.shape.get("data", 1)
         branch = "single"
@@ -459,8 +480,8 @@ class _Positions:
             # shards; rows that do not divide are regathered to match
             n_loc = n // self.dp_size
             even = all(r * bl == n_loc for r in rows.values())
-            every = None if even else L._all_gather(mesh, own, self.dp, 0,
-                                                    self.streams)
+            every = own if self.every or even else L._all_gather(
+                mesh, own, self.dp, 0, self.streams)
             e_loc = cfg.n_experts // self.tp
             ins = {}
             for idx in self.pos:
@@ -482,7 +503,8 @@ class _Positions:
                         k = self.d(idx)
                         y[idx] = full[idx][start[k]:start[k] + rows[k] * bl]
         else:
-            every = L._all_gather(mesh, own, self.dp, 0, self.streams)
+            every = own if self.every else L._all_gather(
+                mesh, own, self.dp, 0, self.streams)
             if branch == "stationary":
                 e_loc = cfg.n_experts // self.tp
                 d_loc = d // data_size
@@ -1015,11 +1037,64 @@ def _attend_part(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
         return (m, w.sum(dim=-1),
                 L.einsum("bklgt,btkh->blkgh", w.to(v.dtype), v).float())
 
-    nc = L._chunks(l, cfg.attn_chunk)
+    return _by_chunks(chunk, L._chunks(l, cfg.attn_chunk), qg, positions)
+
+
+def _mla_part(cfg: ModelConfig, p: dict, q_nope: torch.Tensor,
+              q_rope: torch.Tensor, c_kv: torch.Tensor, k_rope: torch.Tensor,
+              positions: torch.Tensor, t0: int, limit: int):
+    """``layers.mla_attend``'s softmax over one time block of latents,
+    those at global times ``t0, t0 + 1, ...``, unnormalised, in
+    :func:`_attend_part`'s layout with one KV head of every query head:
+    ``(max (b, 1, l, h), exp-sum (b, 1, l, h), weighted values (b, l, 1,
+    h, ·))`` in float32.  A one-token step takes the absorbed form
+    (``w_uk`` folded into the query; the weighted values are latents,
+    ``w_uv`` applies after the blocks combine), a prompt the expanded
+    ``k_nope``/``v_full`` form.  Queries run in ``cfg.attn_chunk`` chunks
+    as there."""
+    b, l, h, _ = q_nope.shape
+    absorbed = l == 1
+    scale = (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
+    t = c_kv.shape[1]
+    key_pos = torch.arange(t0, t0 + t, device=q_nope.device)
+    valid = key_pos[None, :] < limit
+    if absorbed:
+        vals, eq = c_kv, "bhlt,btr->blhr"
+    else:
+        k_nope = L.einsum("btr,rhk->bthk", c_kv, p["w_uk"])
+        vals, eq = L.einsum("btr,rhv->bthv", c_kv, p["w_uv"]), \
+            "bhlt,bthv->blhv"
+        k_full = torch.cat([k_nope, k_rope[:, :, None, :].to(
+            k_nope.dtype).expand(b, t, h, cfg.qk_rope_dim)], dim=-1)
+
+    def chunk(qn, qr, pos):
+        mask = ((key_pos[None, None, :] <= pos[..., None])
+                & valid[:, None, :])[:, None]               # (b, 1, lc, t)
+        if absorbed:
+            q_lat = L.einsum("blhk,rhk->blhr", qn, p["w_uk"])
+            scores = (L.einsum("blhr,btr->bhlt", q_lat, c_kv)
+                      + L.einsum("blhk,btk->bhlt", qr, k_rope))
+        else:
+            scores = L.einsum("blhk,bthk->bhlt", torch.cat([qn, qr], dim=-1),
+                              k_full)
+        scores = torch.where(mask, scores.float() * scale, -1e30)
+        m = scores.amax(dim=-1)                             # (b, h, lc)
+        w = torch.exp(scores - m[..., None])
+        return (m.permute(0, 2, 1)[:, None], w.sum(dim=-1).permute(
+            0, 2, 1)[:, None], L.einsum(eq, w.to(vals.dtype), vals).float()[
+                :, :, None])
+
+    return _by_chunks(chunk, L._chunks(l, cfg.attn_chunk), q_nope, q_rope,
+                      positions)
+
+
+def _by_chunks(chunk, nc: int, *xs: torch.Tensor):
+    """``chunk`` over ``nc`` query chunks of ``xs`` (split on their query
+    axis, 1), its ``(max, exp-sum, weighted values)`` put back together
+    (the first two on axis 2, the last on axis 1)."""
     if nc == 1:
-        return chunk(qg, positions)
-    got = [chunk(qc, pc) for qc, pc in zip(qg.chunk(nc, dim=1),
-                                           positions.chunk(nc, dim=1))]
+        return chunk(*xs)
+    got = [chunk(*c) for c in zip(*(x.chunk(nc, dim=1) for x in xs))]
     return (torch.cat([x[0] for x in got], dim=2),
             torch.cat([x[1] for x in got], dim=2),
             torch.cat([x[2] for x in got], dim=1))

@@ -1646,6 +1646,13 @@ SERVE_SHARDED_ON_CARD = {
     # time on "data", the prompt in both blocks, the steps in the second
     "zamba2-7b-context-parallel": ("zamba2-7b", {}, 1, 12),
     "mamba2-780m-one-row": ("mamba2-780m", {}, 1, 12),
+    # one row, as above: MLA's c_kv/k_rope split over time, and the MoE
+    # layers counting the row once (the 2,176-token prompt takes the
+    # shard-map dispatch, each data position 1,088 tokens)
+    "deepseek-v3-context-parallel": ("deepseek-v3-671b",
+                                     {"capacity_factor": 4.0}, 1, 12),
+    "qwen3-moe-context-parallel": ("qwen3-moe-30b-a3b",
+                                   {"capacity_factor": 4.0}, 1, 2176),
 }
 
 
@@ -1721,3 +1728,54 @@ def test_sharded_serving_on_card_grid(cuda, no_tf32, name):
                          / b.abs().max().clamp(min=1e-30)) <= 1e-5
     assert card_counts == meta_counts
     assert all(v for v in card_counts)
+
+
+@pytest.mark.parametrize("name", ["deepseek-v3-context-parallel",
+                                  "qwen3-moe-context-parallel"])
+def test_context_parallel_serving_on_card_matches_one_device(cuda, no_tf32,
+                                                             name):
+    """One row on the 2 x 2 card grid, its caches split over time on
+    ``"data"``: the partitioned prefill and 3 decode steps (in the second
+    time block) within 1e-5 of the one-device ``prefill``/``decode_step``
+    on the card, logits and gathered caches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.sharded_step import (decode_step_sharded,
+                                                prefill_sharded)
+    from repro_torch.sharding import rules as R
+    from repro_torch.sharding.placement import (NamedSharding, device_put,
+                                                gather)
+    from repro_torch.tree import tree_leaves, tree_map_with_path
+
+    arch, over, rows, seq = SERVE_SHARDED_ON_CARD[name]
+    cfg = get_config(arch, reduced=True, **over)
+    params = _to(T.init_model(cfg, torch.Generator().manual_seed(0)), cuda)
+    rng = np.random.default_rng(1)
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab, (rows, seq)).astype(
+        np.int32), device=cuda)
+    feed = torch.as_tensor(rng.integers(0, cfg.vocab, (3, rows, 1)).astype(
+        np.int32), device=cuda)
+    mesh = _card_grid(cuda)
+
+    def named(specs):
+        return tree_map_with_path(lambda _, s: NamedSharding(mesh, s), specs,
+                                  is_leaf=R.is_spec)
+    one = T.init_cache(cfg, rows, seq + 4, dtype=torch.float32, device=cuda)
+    pc = device_put(T.init_cache(cfg, rows, seq + 4, dtype=torch.float32,
+                                 device=cuda), named(R.cache_specs(
+                                     cfg, one, mesh)))
+    assert all(tuple(x.sharding.spec)[2] == "data" for x in tree_leaves(pc))
+    pl = device_put(params, named(R.param_specs(cfg, T.init_model(cfg, None),
+                                                mesh)))
+    with torch.no_grad():
+        want, one = T.prefill(cfg, params, {"tokens": tok}, one)
+        got, _ = prefill_sharded(cfg, pl, {"tokens": tok}, pc, mesh)
+        for i in range(4):
+            assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+            for a, b in zip(tree_leaves(pc), tree_leaves(one)):
+                assert float((gather(a) - b).abs().max()
+                             / b.abs().max()) <= 1e-5
+            if i < 3:
+                want, one = T.decode_step(cfg, params, feed[i], one, seq + i)
+                got, _ = decode_step_sharded(cfg, pl, feed[i], pc, seq + i,
+                                             mesh)
