@@ -56,6 +56,7 @@ from typing import Any, ClassVar, Mapping, Sequence
 import numpy as np
 import torch
 
+from ... import tracing
 from ...kernels.ref import compact_rows
 from ...launch.mesh import AXES, resolve_device
 from ..events import (DEFAULT_MAX_DEPTH, ByteBatch, EventBatch, EventStream,
@@ -185,6 +186,15 @@ def _use_on_current_stream(ready, tensors) -> None:
     stream.wait_event(ready)
     for t in tensors:
         t.record_stream(stream)
+
+
+def to_host(x: torch.Tensor) -> np.ndarray:
+    """A tensor read to the host: one blocking copy from the device,
+    counted on the open request (``readbacks``, ``d2h_bytes``)."""
+    if tracing.recording():
+        tracing.count("readbacks")
+        tracing.count("d2h_bytes", x.numel() * x.element_size())
+    return x.cpu().numpy()
 
 
 # ------------------------------------------------------- mesh positions
@@ -1651,8 +1661,9 @@ class FilterEngine(abc.ABC):
         a device is copied to ``device`` on ``stream``.
         """
         dev = self.device if device is None else torch.device(device)
-        with (torch.cuda.stream(stream) if stream is not None
-              else contextlib.nullcontext()):
+        with tracing.span("engine.h2d"), \
+                (torch.cuda.stream(stream) if stream is not None
+                 else contextlib.nullcontext()):
             if isinstance(array, torch.Tensor) and array.device.type != "cpu":
                 return array.to(dev, non_blocking=True)
             if isinstance(array, torch.Tensor):
@@ -1661,6 +1672,9 @@ class FilterEngine(abc.ABC):
                 array = np.ascontiguousarray(array)
                 t = torch.from_numpy(array if array.flags.writeable
                                      else array.copy())
+            if tracing.recording():
+                # on the CPU nothing moves: the bytes a card would take
+                tracing.count("h2d_bytes", t.numel() * t.element_size())
             if dev.type != "cuda":
                 return t.to(dev)
             pinned = t.pin_memory()

@@ -36,6 +36,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ... import tracing
 from ...kernels import blocks as blocks_mod
 from ...kernels import parse as parse_mod
 from ...kernels import stream_filter as sf
@@ -85,8 +86,8 @@ def _device_rows(buf: torch.Tensor, count: torch.Tensor, cap: int
     """A sparse kernel's ``(cap, 3)`` buffer and count → host rows: only
     the first ``min(count, cap)`` rows cross to the host.  Returns
     ``((docs, classes, first), count)``."""
-    n = int(count.reshape(-1)[0])
-    rows = buf[:min(n, cap)].cpu().numpy()
+    n = int(base.to_host(count.reshape(-1)[:1])[0])
+    rows = base.to_host(buf[:min(n, cap)])
     return (rows[:, 0], rows[:, 1], rows[:, 2]), n
 
 
@@ -393,13 +394,14 @@ class StreamingEngine(base.FilterEngine):
         only boundary is the sentinel."""
         if pack is None:
             pack = bool(self.options.get("pack", False))
-        if pack:
-            sp = pack_segments(
-                bb, target_len=int(self.plan_.meta["segment_target"]))
-            return sp.data, sp.starts, sp
-        starts = np.full((bb.batch_size, 2), SEG_SENTINEL, np.int32)
-        starts[:, 0] = 0
-        return bb.data, starts, None
+        with tracing.span("engine.prep"):
+            if pack:
+                sp = pack_segments(
+                    bb, target_len=int(self.plan_.meta["segment_target"]))
+                return sp.data, sp.starts, sp
+            starts = np.full((bb.batch_size, 2), SEG_SENTINEL, np.int32)
+            starts[:, 0] = 0
+            return bb.data, starts, None
 
     def _fused_bytes_on(self) -> bool:
         """One-launch bytes kernel, or parse then K1 (``fuse=False``)?"""
@@ -413,15 +415,22 @@ class StreamingEngine(base.FilterEngine):
             m, f = self._lanes_to_queries(*self._parse_then_filter(bb, bucket))
             return FilterResult(m.cpu().numpy(), f.cpu().numpy())
         data, starts, sp = self._bytes_prep(bb, pack)
-        mb, fb = sf.stream_filter_bytes(
-            self.to_device(data), self.to_device(starts),
-            *self._block_tables(), max_depth=self.plan_.meta["max_depth"])
-        # (S, G, D, QB) → (S, D, G, QB) → (S, D, Q)
-        m, f = (x.cpu().numpy() for x in self._lanes_to_queries(
-            mb.transpose(1, 2), fb.transpose(1, 2)))
-        if sp is None:
-            return FilterResult(m[:, 0], f[:, 0])
-        return FilterResult(*sp.scatter(m, f, NO_MATCH))
+        data, starts = self.to_device(data), self.to_device(starts)
+        with tracing.span("engine.launch"):
+            mb, fb = sf.stream_filter_bytes(
+                data, starts, *self._block_tables(),
+                max_depth=self.plan_.meta["max_depth"])
+        # the staged inputs are freed once queued, so the gather below
+        # takes their memory on the card
+        del data, starts
+        with tracing.span("engine.readback"):
+            # (S, G, D, QB) → (S, D, G, QB) → (S, D, Q)
+            m, f = map(base.to_host, self._lanes_to_queries(
+                mb.transpose(1, 2), fb.transpose(1, 2)))
+        with tracing.span("engine.scatter"):
+            if sp is None:
+                return FilterResult(m[:, 0], f[:, 0])
+            return FilterResult(*sp.scatter(m, f, NO_MATCH))
 
     def _parse_then_filter(self, bb: ByteBatch, bucket: int | None
                            ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -429,7 +438,8 @@ class StreamingEngine(base.FilterEngine):
         bound, then K1 → (B, G, QB) lanes.  Only the events reach K1, as
         only they survive in the JAX package's fused program, and there is
         no depth check: deeper documents clip, as in K1."""
-        n_events = bb.event_bound(bucket=self._event_bucket(bucket))
+        with tracing.span("engine.prep"):
+            n_events = bb.event_bound(bucket=self._event_bucket(bucket))
         kind_pos, tag_pos = predecode(self.to_device(bb.data))
         kind, tag, _ = parse_mod.compact_events(kind_pos, tag_pos, n_events)
         return sf.stream_filter(sf.fuse_events(kind, tag),
@@ -492,28 +502,29 @@ class StreamingEngine(base.FilterEngine):
         unbounded, as ``path="dense-overflow"``; ``overflowed`` overrides
         the test for mesh runs, whose buffers each bound ``cap``.
         """
-        n_queries = self.n_queries if n_queries is None else n_queries
-        if (count > cap) if overflowed is None else overflowed:
-            sp = dense_fallback().sparsify(live_ids)
-            sp.overflowed = True
-            sp.meta.update(meta, match_cap=cap, device_rows=int(count),
-                           attempted_path=meta.get("path"),
-                           path="dense-overflow")
-            return sp
-        docs, cls, first = (np.asarray(b)[:count] for b in bufs)
-        meta = dict(meta, match_cap=cap, device_rows=int(docs.shape[0]))
-        reps = (offsets[1:] - offsets[:-1])[cls]
-        total = int(reps.sum())
-        hit = np.repeat(np.arange(cls.shape[0]), reps)
-        within = np.arange(total) - np.repeat(np.cumsum(reps) - reps, reps)
-        qids = members[offsets[cls][hit] + within]
-        docs, first = docs[hit], first[hit]
-        order = np.lexsort((qids, docs))
-        return SparseResult(docs[order], qids[order], first[order],
-                            batch_size=batch_size, n_queries=n_queries,
-                            live_ids=(None if live_ids is None
-                                      else np.asarray(live_ids, np.int32)),
-                            meta=meta)
+        with tracing.span("engine.scatter"):
+            n_queries = self.n_queries if n_queries is None else n_queries
+            if (count > cap) if overflowed is None else overflowed:
+                sp = dense_fallback().sparsify(live_ids)
+                sp.overflowed = True
+                sp.meta.update(meta, match_cap=cap, device_rows=int(count),
+                               attempted_path=meta.get("path"),
+                               path="dense-overflow")
+                return sp
+            docs, cls, first = (np.asarray(b)[:count] for b in bufs)
+            meta = dict(meta, match_cap=cap, device_rows=int(docs.shape[0]))
+            reps = (offsets[1:] - offsets[:-1])[cls]
+            total = int(reps.sum())
+            hit = np.repeat(np.arange(cls.shape[0]), reps)
+            within = np.arange(total) - np.repeat(np.cumsum(reps) - reps, reps)
+            qids = members[offsets[cls][hit] + within]
+            docs, first = docs[hit], first[hit]
+            order = np.lexsort((qids, docs))
+            return SparseResult(docs[order], qids[order], first[order],
+                                batch_size=batch_size, n_queries=n_queries,
+                                live_ids=(None if live_ids is None
+                                          else np.asarray(live_ids, np.int32)),
+                                meta=meta)
 
     def filter_batch_sparse(self, batch: EventBatch, *,
                             match_cap: int | None = None) -> SparseResult:
@@ -568,11 +579,14 @@ class StreamingEngine(base.FilterEngine):
         doc_map = (spk.doc_ids if spk is not None
                    else np.arange(b, dtype=np.int32)[:, None])
         lane_cls, offsets, members = self._plain_lane_tables(self.plan_)
-        buf, cnt = sf.stream_filter_bytes_sparse(
-            self.to_device(data), self.to_device(starts),
-            self.to_device(doc_map), *self._block_tables(), lane_cls,
-            cap=cap, max_depth=self.plan_.meta["max_depth"])
-        bufs, n = _device_rows(buf, cnt, cap)
+        data, starts, doc_map = map(self.to_device, (data, starts, doc_map))
+        with tracing.span("engine.launch"):
+            buf, cnt = sf.stream_filter_bytes_sparse(
+                data, starts, doc_map, *self._block_tables(), lane_cls,
+                cap=cap, max_depth=self.plan_.meta["max_depth"])
+        del data, starts, doc_map
+        with tracing.span("engine.readback"):
+            bufs, n = _device_rows(buf, cnt, cap)
         return self._expand_class_hits(
             bufs, n, cap, offsets, members, batch_size=b,
             meta={"path": "kernel-fused", "launch": "bytes"},

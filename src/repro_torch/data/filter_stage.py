@@ -38,6 +38,7 @@ from typing import Any, Iterable, Iterator, Sequence
 
 import numpy as np
 
+from .. import tracing
 from ..core import engines
 from ..core.dictionary import TagDictionary
 from ..core.engines import FilterResult, SparseResult
@@ -443,7 +444,8 @@ class FilterStage:
         for that plan's tables first."""
         ep = self.plan_epoch() if epoch is None else epoch
         eng, sharded = ep.eng, ep.sharded
-        bb = ByteBatch.from_buffers(bufs, bucket=self.byte_bucket)
+        with tracing.span("stage.pack"):
+            bb = ByteBatch.from_buffers(bufs, bucket=self.byte_bucket)
         t0 = time.perf_counter()
         eng.wait_plan()
         if self.data_shards > 1:
@@ -513,11 +515,16 @@ class FilterStage:
                     ) -> Iterator[list[RoutedDocument]]:
         """Route raw paper-format byte payloads (device-decode twin of
         :meth:`route`): each batch is decoded *and* filtered on the
-        device, then fanned out to shards exactly like the event path."""
+        device, then fanned out to shards exactly like the event path.
+        While a profiler runs, each batch is a ``stage.request`` span
+        (:mod:`repro_torch.tracing`) holding ``stage.pack``, the engine's
+        spans and ``stage.fan_out``."""
         base = 0
         for batch in self._chunks(payloads):
-            res = self._filter_bytebatch(batch)
-            yield self._fan_out(res, [len(b) for b in batch], base)
+            with tracing.span("stage.request", root=True):
+                res = self._filter_bytebatch(batch)
+                routed = self._fan_out(res, [len(b) for b in batch], base)
+            yield routed
             base += len(batch)
 
     # --------------------------------------------- the pipelined route
@@ -614,28 +621,29 @@ class FilterStage:
         assigns explicit, possibly non-contiguous document indices (the
         serve loop's quarantine retries filter recovered subsets whose
         seqs are not ``base + i``)."""
-        sparse = isinstance(results, SparseResult)
-        live = self._gids if gids is None else gids
-        out: list[RoutedDocument] = []
-        for i, nb in enumerate(nbytes):
-            doc = base + i if seqs is None else int(seqs[i])
-            # result columns are live-query columns; route by global id so
-            # churn never changes which data shard a profile delivers to.
-            # Sparse producers with live_ids already speak global ids.
-            if sparse:
-                qids = results.matching_queries(i)
-                if results.live_ids is None:
-                    qids = live[qids]
-            else:
-                qids = live[results[i].matching_queries()]
-            if len(qids) == 0:
-                if self.keep_unmatched:
-                    out.append(RoutedDocument(doc, qids, 0, nb))
-                continue
-            for shard in np.unique(self.shard_of_profile[qids]):
-                mine = qids[self.shard_of_profile[qids] == shard]
-                out.append(RoutedDocument(doc, mine, int(shard), nb))
-        return out
+        with tracing.span("stage.fan_out"):
+            sparse = isinstance(results, SparseResult)
+            live = self._gids if gids is None else gids
+            out: list[RoutedDocument] = []
+            for i, nb in enumerate(nbytes):
+                doc = base + i if seqs is None else int(seqs[i])
+                # result columns are live-query columns; route by global id so
+                # churn never changes which data shard a profile delivers to.
+                # Sparse producers with live_ids already speak global ids.
+                if sparse:
+                    qids = results.matching_queries(i)
+                    if results.live_ids is None:
+                        qids = live[qids]
+                else:
+                    qids = live[results[i].matching_queries()]
+                if len(qids) == 0:
+                    if self.keep_unmatched:
+                        out.append(RoutedDocument(doc, qids, 0, nb))
+                    continue
+                for shard in np.unique(self.shard_of_profile[qids]):
+                    mine = qids[self.shard_of_profile[qids] == shard]
+                    out.append(RoutedDocument(doc, mine, int(shard), nb))
+            return out
 
     # ------------------------------------------------------------- metrics
     def selectivity(self, docs: list[EventStream]) -> float:

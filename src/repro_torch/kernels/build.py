@@ -10,8 +10,10 @@ existing file.  ``-Xptxas -v`` reports each kernel's registers, shared
 memory and spills; the report is kept beside the library
 (:func:`build_log`).  Loading binds every C entry point with explicit
 ``argtypes``/``restype`` (``ctypes.c_void_p`` for pointers and the
-stream).  Nothing here runs at import: this module imports on machines
-with no ``nvcc`` and no card.
+stream).  While a profiler runs, a compile is a ``kernels.build`` span
+and a library's first load a ``kernels.load`` span
+(:mod:`repro_torch.tracing`).  Nothing here runs at import: this module
+imports on machines with no ``nvcc`` and no card.
 
 Threads of one process (the serve loop's workers) build and load under
 one lock, so a source is compiled once however many threads miss at the
@@ -29,6 +31,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+from .. import tracing
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -111,6 +115,13 @@ def build(names: tuple[str, ...] | None = None) -> dict[str, Path]:
 
 def _build(names: tuple[str, ...]) -> dict[str, Path]:
     todo = {n: library_path(n) for n in names}
+    if all(lib.exists() for lib in todo.values()):
+        return todo
+    with tracing.span("kernels.build"):
+        return _compile(todo)
+
+
+def _compile(todo: dict[str, Path]) -> dict[str, Path]:
     running = []
     for name, lib in todo.items():
         if lib.exists():
@@ -150,7 +161,8 @@ def load(name: str) -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def _load(name: str) -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(_build((name,))[name]))
+    with tracing.span("kernels.load"):
+        lib = ctypes.CDLL(str(_build((name,))[name]))
     for fn_name, (argtypes, restype) in SIGNATURES[name].items():
         fn = getattr(lib, fn_name)
         fn.argtypes = argtypes

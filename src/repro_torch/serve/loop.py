@@ -29,8 +29,12 @@ Dataflow (one :class:`ServeLoop` instance)::
   dispatch order; verdicts equal the synchronous
   :meth:`~repro_torch.data.filter_stage.FilterStage.route_bytes` path.
 * **SLOs** — :meth:`ServeLoop.slo_summary` reports p50/p99/p999
-  bytes→verdict latency, shed rate, batch fill, close reasons, queue depth
-  and backpressure occupancy.
+  bytes→verdict latency, the wait before dispatch, shed rate, batch fill,
+  close reasons, queue depth and backpressure occupancy.
+* **Spans** — while a profiler runs (:mod:`repro_torch.tracing`):
+  ``loop.validate`` in submit, ``loop.dispatch`` (with
+  ``loop.slot_wait``) on the batcher, and as its children the worker's
+  ``stage.request`` and the completer's ``loop.resolve``.
 * **Fault tolerance** — :func:`~repro_torch.core.events.validate_payload`
   rejects known-bad bytes at :meth:`ServeLoop.submit`; a failing batch is
   retried once, then bisected, and poison documents are quarantined into
@@ -67,6 +71,7 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
+from .. import tracing
 from ..core.engines import FilterResult
 from ..core.events import (DEFAULT_MAX_DEPTH, DocumentError, KernelFault,
                            validate_payload)
@@ -95,6 +100,10 @@ class ServeRequest:
     ``epoch`` is the :class:`PlanEpoch` the verdicts were filtered under
     (``-1`` until routed), so a caller can hold each request against the
     subscription set that was live for it while churn commits.
+
+    ``t_submit``, ``t_dispatch`` and ``t_verdict`` are on the loop's
+    clock: admission, the hand-off of its batch to a worker (after the
+    batch closed and took an in-flight slot), and the verdict.
     """
 
     payload: bytes
@@ -102,6 +111,7 @@ class ServeRequest:
     seq: int = -1
     shed: bool = False
     t_verdict: float | None = None
+    t_dispatch: float | None = None
     routed: list[RoutedDocument] | None = None
     error: BaseException | None = None
     epoch: int = -1
@@ -209,6 +219,7 @@ class ServeLoop:
         self._comp_cv = threading.Condition()
         self._completion: deque = deque()
         self._latencies: list[float] = []
+        self._queue_waits: list[float] = []
         self._batch_fills: list[float] = []
         #: bounded dead-letter buffer of quarantined documents: dicts of
         #: ``{seq, payload, error, message}`` (seq -1 = rejected at
@@ -267,7 +278,8 @@ class ServeLoop:
         req = ServeRequest(payload=payload, t_submit=self._clock())
         if self.validate:
             try:
-                validate_payload(payload, max_depth=self._max_depth)
+                with tracing.span("loop.validate"):
+                    validate_payload(payload, max_depth=self._max_depth)
             except DocumentError as e:
                 req.error = e
                 req.done.set()
@@ -331,14 +343,15 @@ class ServeLoop:
                     n = min(self.max_batch, len(self._queue))
                     reqs = [self._queue.popleft() for _ in range(n)]
                     if n == self.max_batch:
-                        self.counters["size_closes"] += 1
+                        reason = "size"
                     elif self._closing:
-                        self.counters["flush_closes"] += 1
+                        reason = "flush"
                     else:
-                        self.counters["deadline_closes"] += 1
+                        reason = "deadline"
+                    self.counters[f"{reason}_closes"] += 1
                     self.counters["batches"] += 1
                     self._not_full.notify_all()
-                self._dispatch(reqs)
+                self._dispatch(reqs, reason)
         except BaseException as e:  # pragma: no cover - defensive
             self._fail(e)
         finally:
@@ -346,22 +359,36 @@ class ServeLoop:
                 self._completion.append(None)
                 self._comp_cv.notify()
 
-    def _dispatch(self, reqs: list[ServeRequest]) -> None:
+    def _dispatch(self, reqs: list[ServeRequest], reason: str) -> None:
         """Take an in-flight slot (counting the wait as backpressure)
         and hand the batch to a worker; completion order is dispatch
-        order regardless of which worker finishes first."""
-        if not self._slots.acquire(blocking=False):
-            with self._lock:
-                self.counters["backpressure_waits"] += 1
-            self._slots.acquire()
-        # submit and enqueue under the completion lock: a worker may start
-        # the batch at once, and a swap the builder queues from then on
-        # must land behind it (a batch boundary), never in front
-        with self._comp_cv:
-            future = self._pool.submit(self._run_batch,
-                                       [r.payload for r in reqs])
-            self._completion.append((reqs, future))
-            self._comp_cv.notify()
+        order regardless of which worker finishes first.  ``reason`` is
+        why the batch closed (``size``, ``deadline`` or ``flush``).
+
+        While a profiler runs this is the ``loop.dispatch`` span, which
+        ends once the batch is queued; it is the parent of the worker's
+        ``stage.request`` and of the completer's ``loop.resolve``
+        (:mod:`repro_torch.tracing`)."""
+        with tracing.span("loop.dispatch", root=True) as batch:
+            if batch is not None:
+                batch.attrs.update(close=reason, seqs=[r.seq for r in reqs])
+            if not self._slots.acquire(blocking=False):
+                with self._lock:
+                    self.counters["backpressure_waits"] += 1
+                with tracing.span("loop.slot_wait"):
+                    self._slots.acquire()
+            t_dispatch = self._clock()
+            for r in reqs:
+                r.t_dispatch = t_dispatch
+            # submit and enqueue under the completion lock: a worker may
+            # start the batch at once, and a swap the builder queues from
+            # then on must land behind it (a batch boundary), never in
+            # front
+            with self._comp_cv:
+                future = self._pool.submit(self._run_batch,
+                                           [r.payload for r in reqs], batch)
+                self._completion.append((reqs, future, batch))
+                self._comp_cv.notify()
 
     def _stream(self):
         """This thread's CUDA stream as the current stream (created at
@@ -373,9 +400,10 @@ class ServeLoop:
             stream = self._local.stream = torch.cuda.Stream(self._device)
         return torch.cuda.stream(stream)
 
-    def _run_batch(self, payloads: list[bytes]):
+    def _run_batch(self, payloads: list[bytes], batch=None):
         """Worker-thread body: the stage's device bytes→verdict call, on
-        this thread's stream.
+        this thread's stream, as a ``stage.request`` span whose parent
+        is ``batch``, the batcher's ``loop.dispatch`` span.
 
         The batch is pinned to a :meth:`FilterStage.plan_epoch`
         snapshot — a hot swap committing mid-flight cannot tear
@@ -391,7 +419,8 @@ class ServeLoop:
         if self.pad_batches and n < self.max_batch:
             padded = payloads + [payloads[-1]] * (self.max_batch - n)
         ep = self.stage.plan_epoch()
-        with self._stream():
+        with self._stream(), tracing.span("stage.request", parent=batch,
+                                          root=True):
             res = self.stage._filter_bytebatch(padded, record=False,
                                                epoch=ep)
         if len(padded) != n:
@@ -420,7 +449,7 @@ class ServeLoop:
                 if item[0] == "swap":
                     self._commit_swap(item[1], item[2], item[3])
                     continue
-                reqs, future = item
+                reqs, future, batch = item
                 try:
                     res, nbytes, dt, ep = future.result()
                 except BaseException as e:
@@ -429,44 +458,48 @@ class ServeLoop:
                     else:
                         self._fail_requests(reqs, e)
                 else:
-                    self._resolve(reqs, res, nbytes, dt, ep)
+                    self._resolve(reqs, res, nbytes, dt, ep, batch)
                 self._slots.release()
                 self._maybe_auto_rebalance()
         except BaseException as e:  # pragma: no cover - defensive
             self._fail(e)
 
     def _resolve(self, reqs: list[ServeRequest], res, nbytes: list[int],
-                 dt: float, ep: PlanEpoch) -> None:
-        """Fan a finished batch's verdicts out to its tickets.
+                 dt: float, ep: PlanEpoch, batch=None) -> None:
+        """Fan a finished batch's verdicts out to its tickets, as a
+        ``loop.resolve`` span whose parent is ``batch``.
 
         Routing uses the epoch the batch was *filtered* under
         (``ep.gids``) and the requests' own seqs — recovered subsets
         are non-contiguous, and a plan swapped after dispatch must not
         remap this batch's verdict columns."""
-        t_done = self._clock()
-        routed = self.stage._fan_out(res, nbytes, gids=ep.gids,
-                                     seqs=[r.seq for r in reqs])
-        self.stage._record(res, len(reqs), sum(nbytes), dt)
-        by_doc: dict[int, list[RoutedDocument]] = {}
-        for rd in routed:
-            by_doc.setdefault(rd.doc_index, []).append(rd)
-        for r in reqs:
-            r.t_verdict = t_done
-            r.routed = by_doc.get(r.seq, [])
-            r.epoch = ep.epoch
-            self._latencies.append(t_done - r.t_submit)
-            r.done.set()
-        self.counters["completed"] += len(reqs)
-        self._t_last = t_done
-        self._batch_fills.append(len(reqs) / self.max_batch)
-        if self.deliver is not None:
-            # a stalled consumer stalls HERE, holding the slot: that is
-            # the backpressure chain's first link.  A *raising* consumer
-            # must not kill the loop — its error is counted, not fatal.
-            try:
-                self.deliver(routed)
-            except BaseException:
-                self.counters["delivery_errors"] += 1
+        with tracing.span("loop.resolve", parent=batch):
+            t_done = self._clock()
+            routed = self.stage._fan_out(res, nbytes, gids=ep.gids,
+                                         seqs=[r.seq for r in reqs])
+            self.stage._record(res, len(reqs), sum(nbytes), dt)
+            by_doc: dict[int, list[RoutedDocument]] = {}
+            for rd in routed:
+                by_doc.setdefault(rd.doc_index, []).append(rd)
+            for r in reqs:
+                r.t_verdict = t_done
+                r.routed = by_doc.get(r.seq, [])
+                r.epoch = ep.epoch
+                self._latencies.append(t_done - r.t_submit)
+                if r.t_dispatch is not None:
+                    self._queue_waits.append(r.t_dispatch - r.t_submit)
+                r.done.set()
+            self.counters["completed"] += len(reqs)
+            self._t_last = t_done
+            self._batch_fills.append(len(reqs) / self.max_batch)
+            if self.deliver is not None:
+                # a stalled consumer stalls HERE, holding the slot: that is
+                # the backpressure chain's first link.  A *raising* consumer
+                # must not kill the loop — its error is counted, not fatal.
+                try:
+                    self.deliver(routed)
+                except BaseException:
+                    self.counters["delivery_errors"] += 1
 
     # ------------------------------------------------- failure containment
     def _recover(self, reqs: list[ServeRequest], err: BaseException,
@@ -711,8 +744,11 @@ class ServeLoop:
         quiescence ``arrived == completed + shed + failed +
         quarantined`` (``rejected`` — pre-admission — is the part of
         ``quarantined`` that never got a seq; ``arrived == admitted +
-        shed + rejected``)."""
+        shed + rejected``).  ``queue_wait_ms`` holds the p50 and p99 of
+        each resolved request's wait from admission to the hand-off of
+        its batch (``t_dispatch - t_submit``)."""
         lat_ms = np.asarray(self._latencies) * 1e3
+        wait_ms = np.asarray(self._queue_waits) * 1e3
         c = dict(self.counters)
         arrived = c["admitted"] + c["shed"] + c["rejected"]
         span = ((self._t_last - self._t_first)
@@ -727,6 +763,8 @@ class ServeLoop:
             "p99_ms": _pct(lat_ms, 99.0),
             "p999_ms": _pct(lat_ms, 99.9),
             "mean_ms": float(lat_ms.mean()) if lat_ms.size else float("nan"),
+            "queue_wait_ms": {"p50": _pct(wait_ms, 50.0),
+                              "p99": _pct(wait_ms, 99.0)},
             "batch_fill": (float(np.mean(self._batch_fills))
                            if self._batch_fills else 0.0),
             "served_per_s": c["completed"] / span if span > 0 else 0.0,

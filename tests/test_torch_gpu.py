@@ -13,7 +13,9 @@ sparse kernels' rows compared as sorted sets (their order on the card is
 not fixed) and their counts exactly.  K5 is checked on both of its
 paths (16-byte vector, scalar), the serve loop on worker streams against
 the synchronous route, and a hot swap with batches in flight against the
-live set of each batch's epoch.  Query-sharded plans: K1-K4 over the
+live set of each batch's epoch.  The program's spans: one launch and two
+readbacks a dense request, and the two kernels that launch starts.
+Query-sharded plans: K1-K4 over the
 folded P·G blocks with tombstoned columns, K6 over the parts folded into
 its state axis (past shared memory too), and a sharded subscribe made on
 one stream while a batch of the old plan runs on another.  The plan
@@ -696,6 +698,43 @@ def swap_with_batches_in_flight(device, **stage_kw):
 
 def test_hot_swap_with_batches_in_flight_on_card(cuda):
     swap_with_batches_in_flight(str(cuda))
+
+
+# ------------------------------------------------------ spans and counters
+def test_dense_request_spans_count_one_launch_on_card(cuda):
+    """Under the profiler each dense ``route_bytes`` batch is one
+    ``stage.request`` span with ``launches`` 1 and ``readbacks`` 2 (the
+    verdicts and the first events, read one after the other).  K2's one
+    wrapper call is one launch of its C entry point ``sf_bytes``, which
+    starts two kernels: ``build_entries``, which writes the blocks'
+    gather entries into the launch's scratch, then ``bytes_kernel``; so
+    the card runs one of each a batch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import tracing
+    from repro_torch.data.filter_stage import FilterStage
+
+    _, d, qs, raw = serve_workload(n_docs=8)
+    st = FilterStage(qs, d, n_shards=2, batch_size=4, device=str(cuda))
+    list(st.route_bytes(raw))                     # build, load, warm up
+    torch.cuda.synchronize()
+    tracing.clear()
+    before = sf.stream_filter_bytes.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            list(st.route_bytes(raw))
+        torch.cuda.synchronize()
+    roots = [s for s in tracing.spans() if s.name == "stage.request"]
+    assert len(roots) == 6 == sf.stream_filter_bytes.launches - before
+    assert [(r.attrs["launches"], r.attrs["readbacks"]) for r in roots] \
+        == [(1, 2)] * 6
+    kernels = [e.name() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA]
+    assert sum("build_entries" in k for k in kernels) == 6
+    assert sum("bytes_kernel" in k for k in kernels) == 6
+    tracing.clear()
 
 
 # ------------------------------------------------------ query-sharded plans
