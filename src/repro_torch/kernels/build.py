@@ -51,6 +51,10 @@ SIGNATURES = {
         "sf_max_slots": ([], ctypes.c_int),
         # G, n_tags, WB
         "sf_scratch_words": ([_I] * 3, ctypes.c_longlong),
+        # S, pieces, L, max_depth
+        "sf_piece_words": ([_I] * 4, ctypes.c_longlong),
+        # n_tags, WB, QB, max_depth
+        "sf_bytes_resident": ([_I] * 4, ctypes.c_int),
         # events, B, N, tables, matched, first, scratch, stream
         "sf_events": ([_P, _I, _I] + _TABLES + [_P, _P, _P, _P],
                       ctypes.c_int),
@@ -58,8 +62,9 @@ SIGNATURES = {
         # scratch, stream
         "sf_events_sparse": ([_P, _I, _I, _P] + _TABLES + _SPARSE
                              + [_P, _P], ctypes.c_int),
-        # data, S, L, starts, D, tables, matched, first, scratch, stream
-        "sf_bytes": ([_P, _I, _I, _P, _I] + _TABLES + [_P, _P, _P, _P],
+        # data, S, L, starts, D, tables, matched, first, scratch, pieces,
+        # stream
+        "sf_bytes": ([_P, _I, _I, _P, _I] + _TABLES + [_P, _P, _P, _I, _P],
                      ctypes.c_int),
         # data, S, L, starts, D, doc_map, tables, lane_cls, cap, buf,
         # count, scratch, stream

@@ -20,14 +20,36 @@
 //
 // What bounds them on this card: the events of one (document, block) pair
 // form a sequential chain -- each OPEN reads the stack row the previous
-// events left -- so a pair cannot be split across threads in time, only
-// across its WB words.  The bytes are read once per state block (G times
-// per segment), which is little next to the chain.  Neither the bytes nor
-// the integer operations bound the kernels; the chain's latency does: the
-// time of one event's dependent shared-memory loads and synchronisation,
-// times the events of the longest chain.
+// events left.  The bytes are read once per state block (G times per
+// segment), which is little next to the chain.  Neither the bytes nor the
+// integer operations bound the kernels; the chain's latency does: the time
+// of one event's dependent shared-memory loads and synchronisation, times
+// the events of the longest chain.  A launch of G x S chains on few long
+// documents (16 documents of 1 MB in 11 blocks: 176 chains, each ~60,000
+// opens) leaves most of the card's resident blocks idle, so its time is
+// one chain's.  An H100 holds 528 such blocks, 4 an SM: the plan's 47 KB
+// of shared memory allows 4, and so does the pool of named barriers, of
+// which a byte kernel holds all 16 ids (the ring's ids are in registers).
 //
 // What the design does about it:
+// * K2 over one-document segments splits each chain into P pieces in time
+//   when G x S chains would leave resident blocks idle (the wrapper picks P
+//   from the launch's shape and the card's residency).  The row an OPEN
+//   pushes depends only on the row under it and the tag, so the stack at
+//   any position is the rows its open ancestors pushed, replayed from the
+//   root.  A piece starts on a window edge, replays its ancestors' opens
+//   (recording nothing), then runs its own bytes with the ordinal of its
+//   first event; pieces merge their lanes with atomicOr (matched) and
+//   atomicMin (first), which is exact in any order.  Two small kernels
+//   plan the pieces on the device in the same call: piece_windows sums
+//   each window's event walk (events, net depth, least and most prefix,
+//   most rise: composable, so windows and lanes combine by scans), and
+//   piece_plan scans them per segment to each piece's first ordinal and
+//   depth, and finds each ancestor as the last OPEN reaching its level in
+//   the last window that dips below it.  A segment whose depth ever passes
+//   max_depth + 1 (the stack clips, and stops holding the ancestors' rows)
+//   is run whole by its first piece.  Each event is still stepped once a
+//   block; the replays add at most max_depth + 1 opens a piece.
 // * One warp runs a chain.  Lane l owns the words l, l + 32, ... of the
 //   block (NW = WB/32 rounded up to a power of two, a template parameter;
 //   two words at the port's WB = 64), keeps their self-loop and pending
@@ -105,6 +127,7 @@ constexpr int kMaxSlots = 1 << (32 - kSlotShift);
 // gather entry: parent word | parent bit << 10 | word << 15 | bit << 25
 constexpr int kHeld = 10;             // wildcard rounds kept in registers
 constexpr int kPrepThreads = 256;
+constexpr int kPlanThreads = 1024;    // piece_plan: one block a segment
 
 struct Tables {
   const uint32_t* tagmask;   // (G, T+1, WB) per-tag match words; row T: wild
@@ -394,7 +417,10 @@ struct Chain {
   // warp).  The pushed row is
   //   nxt = (parent bits of the tag's states) | (selfloop & row)
   // assembled in s.acc from the wildcard list and the tag's list, pushed
-  // at clip(depth + 1); the accept lanes read from it.
+  // at clip(depth + 1); the accept lanes read from it.  A replayed
+  // ancestor (kRecord false) pushes its row and records no lane: the
+  // piece that holds the ancestor's own open records it.
+  template <bool kRecord = true>
   __device__ void open(const Smem& s, const Tables& t, int tag, int ord) {
     const int wb = t.wb;
     const int tclip = (tag >= 0 && tag < t.n_tags) ? tag : t.n_tags;
@@ -425,7 +451,7 @@ struct Chain {
     for (int i = 0; i < NW; ++i) {
       if (!owns(i, wb)) continue;
       const uint32_t nxt = s.acc[lane + 32 * i];
-      const uint32_t fresh = nxt & pending[i];
+      const uint32_t fresh = kRecord ? nxt & pending[i] : 0u;
       s.stack[widx * wb + lane + 32 * i] = nxt;
       if (fresh) s.newly[lane + 32 * i] = fresh;
       pending[i] &= ~nxt;
@@ -460,10 +486,13 @@ struct Chain {
 // lane q % 32 is the only reader and writer of lane q.
 
 // K1/K2: the lanes of every (row, block, slot) out as (rows, G, slots, QB).
+// `merge`: the row runs as pieces, each ORing its hits into `matched` and
+// taking the least ordinal into `first`, cleared to 0 and kNoMatch first.
 struct DenseOut {
   int32_t* matched;
   int32_t* first;
   int n_slots;
+  bool merge;
   static constexpr bool kSparse = false;
 
   __device__ const int32_t* lane_cls() const { return nullptr; }
@@ -477,8 +506,13 @@ struct DenseOut {
                         int slot) const {
     const size_t out = at(t, g, row, slot);
     for (int q = threadIdx.x & 31; q < t.qb; q += 32) {
-      matched[out + q] = s.matched[q];
-      first[out + q] = s.first[q];
+      if (!merge) {
+        matched[out + q] = s.matched[q];
+        first[out + q] = s.first[q];
+      } else if (s.matched[q] != 0) {
+        atomicOr(matched + out + q, 1);
+        atomicMin(first + out + q, s.first[q]);
+      }
     }
   }
 
@@ -586,6 +620,29 @@ __device__ inline int symbol_value(int b) {
   return -1;
 }
 
+// One lane's bytes of a window: its kPerLane positions from `p` and three
+// of look-ahead, zeros past the row's end.
+__device__ __forceinline__ void load_lane(const uint8_t* __restrict__ row,
+                                          int length, int p,
+                                          int (&b)[kPerLane + 3]) {
+#pragma unroll
+  for (int x = 0; x < kPerLane + 3; ++x)
+    b[x] = p + x < length ? __ldg(row + p + x) : 0;
+}
+
+// The event a position starts, from its byte and the three after it:
+// kind << 12 | tag, or -1 for none.  The producer and the piece plan both
+// classify with it, so they count the same events.
+__device__ __forceinline__ int classify(int b0, int b1, int b2, int b3) {
+  const bool is_lt = b0 == kLt;
+  const bool is_close = is_lt && b1 == kSlash;
+  const int v0 = symbol_value(is_close ? b2 : b1);
+  const int v1 = symbol_value(is_close ? b3 : b2);
+  return is_lt && v0 >= 0 && v1 >= 0
+             ? ((is_close ? kClose : kOpen) << 12) | (v0 * 64 + v1)
+             : -1;
+}
+
 // named barriers between the producer and the chain warp (64 threads)
 __device__ __forceinline__ void bar_sync(int id) {
   asm volatile("bar.sync %0, 64;\n" ::"r"(id) : "memory");
@@ -616,49 +673,38 @@ __device__ __noinline__ void next_document(Smem s, Tables t, Out out, int g,
   __syncwarp();
 }
 
-// K2/K3 producer warp: classify the segment row window by window, compact
-// the events in byte order into the ring (slot << 13 | kind << 12 | tag),
-// hand each window over.  Document slot d ends where slot d + 1 starts; the
-// last slot never ends early.
+// K2/K3 producer warp: classify the windows [k0, k1) of the segment row,
+// compact the events in byte order into the ring (slot << 13 | kind << 12
+// | tag), hand each window over.  Document slot d ends where slot d + 1
+// starts; the last slot never ends early.
 __device__ void produce(const Smem& s, const uint8_t* __restrict__ row,
                         int length, const int32_t* __restrict__ st,
-                        int n_docs, int n_windows) {
+                        int n_docs, int k0, int k1) {
   const int lane = threadIdx.x & 31;
   int d = 0;
   int bound = n_docs > 1 ? __ldg(st + 1) : INT32_MAX;
   // this window's bytes, three past the lane's positions, and the next
   // window's, in flight
   int b[kPerLane + 3], ahead[kPerLane + 3];
-#pragma unroll
-  for (int x = 0; x < kPerLane + 3; ++x)
-    b[x] = lane * kPerLane + x < length ? __ldg(row + lane * kPerLane + x) : 0;
-  for (int k = 0; k < n_windows; ++k) {
-    const int slot = k % kRingSlots;
+  load_lane(row, length, k0 * kWindow + lane * kPerLane, b);
+  for (int k = k0; k < k1; ++k) {
+    const int slot = (k - k0) % kRingSlots;
     const int p0 = k * kWindow + lane * kPerLane;
-#pragma unroll
-    for (int x = 0; x < kPerLane + 3; ++x)
-      ahead[x] = p0 + kWindow + x < length ? __ldg(row + p0 + kWindow + x)
-                                           : 0;
-    if (k >= kRingSlots) bar_sync(kEmptyBar + slot);  // the chain freed it
+    load_lane(row, length, p0 + kWindow, ahead);
+    if (k - k0 >= kRingSlots) bar_sync(kEmptyBar + slot);  // the chain freed it
     int word[kPerLane], n = 0;
     bool keep[kPerLane];
 #pragma unroll
     for (int x = 0; x < kPerLane; ++x) {
       const int p = p0 + x;
-      const bool is_lt = b[x] == kLt;
-      const bool is_close = is_lt && b[x + 1] == kSlash;
-      const bool is_open = is_lt && !is_close;
-      const int v0 = symbol_value(is_close ? b[x + 2] : b[x + 1]);
-      const int v1 = symbol_value(is_close ? b[x + 3] : b[x + 2]);
-      const bool ok = v0 >= 0 && v1 >= 0;
-      keep[x] = p < length && (is_open || is_close) && ok;
+      const int ev = classify(b[x], b[x + 1], b[x + 2], b[x + 3]);
+      keep[x] = p < length && ev >= 0;
       if (p < length)
         while (p >= bound) {  // crossed one or more document starts
           ++d;
           bound = d + 1 < n_docs ? __ldg(st + d + 1) : INT32_MAX;
         }
-      word[x] = (d << kSlotShift) | ((is_close ? kClose : kOpen) << 12) |
-                ((v0 * 64 + v1) & 0xfff);
+      word[x] = (d << kSlotShift) | (ev & 0x1fff);
       n += keep[x] ? 1 : 0;
     }
     int incl = n;  // inclusive scan of the lanes' counts
@@ -681,31 +727,54 @@ __device__ void produce(const Smem& s, const uint8_t* __restrict__ row,
   }
 }
 
+// int32 words of one piece's entry in the plan: its windows [k0, k1), the
+// ordinal of its first event, its depth at k0, then one ancestor tag a
+// level, root first.
+__host__ __device__ inline int piece_words(int max_depth) {
+  return 4 + max_depth + 1;
+}
+
 // K2/K3: one thread block of two warps per (segment, state block g) over
 // raw bytes (S, L) with document starts (S, D+1): warp 1 produces the
-// events, warp 0 runs the chain.
+// events, warp 0 runs the chain.  With a piece plan (K2 over one-document
+// segments, n_pieces > 1) block row y runs piece y % n_pieces of segment
+// y / n_pieces: its ancestors' opens, then its own windows.
 template <class Out, int NW>
 __global__ void __launch_bounds__(64)
 bytes_kernel(const uint8_t* __restrict__ data, int length,
              const int32_t* __restrict__ starts, int n_docs, Tables t,
              const uint32_t* __restrict__ ent,
-             const int32_t* __restrict__ toff, Out out) {
+             const int32_t* __restrict__ toff, Out out,
+             const int32_t* __restrict__ plan, int n_pieces) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int g = blockIdx.x, seg = blockIdx.y, lane = threadIdx.x & 31;
+  const int g = blockIdx.x, seg = blockIdx.y / n_pieces;
+  const int lane = threadIdx.x & 31;
+  int k0 = 0, k1 = (length + kWindow - 1) / kWindow, ord = 0, n_anc = 0;
+  const int32_t* anc = nullptr;
+  if (plan != nullptr) {
+    const int32_t* e =
+        plan + static_cast<size_t>(blockIdx.y) * piece_words(t.max_depth);
+    k0 = __ldg(e);
+    k1 = __ldg(e + 1);
+    ord = __ldg(e + 2);
+    n_anc = __ldg(e + 3);
+    anc = e + 4;
+  }
   const Smem s = carve(smem, t, Out::kSparse, true);
   load_block(s, t, g, ent, toff, out.lane_cls());
-  const int n_windows = (length + kWindow - 1) / kWindow;
   if (threadIdx.x >= 32) {
     produce(s, data + static_cast<size_t>(seg) * length, length,
-            starts + static_cast<size_t>(seg) * (n_docs + 1), n_docs,
-            n_windows);
+            starts + static_cast<size_t>(seg) * (n_docs + 1), n_docs, k0,
+            k1);
     return;
   }
   Chain<NW> c;
   c.init(s, t, g);
-  int d = 0, ord = 0;
-  for (int k = 0; k < n_windows; ++k) {
-    const int ring_slot = k % kRingSlots;
+  for (int j = 0; j < n_anc; ++j)
+    c.template open<false>(s, t, __ldg(anc + j), 0);
+  int d = 0;
+  for (int k = k0; k < k1; ++k) {
+    const int ring_slot = (k - k0) % kRingSlots;
     bar_sync(kFullBar + ring_slot);
     const int n = s.ring_n[ring_slot];
     const int32_t* evs = s.ring + ring_slot * kWindow;
@@ -733,11 +802,228 @@ bytes_kernel(const uint8_t* __restrict__ data, int length,
       }
     }
     __syncwarp();  // every lane has read the slot
-    if (k + kRingSlots < n_windows) bar_arrive(kEmptyBar + ring_slot);
+    if (k + kRingSlots < k1) bar_arrive(kEmptyBar + ring_slot);
   }
   // the document the stream ended inside; later (empty) slots hold nothing
   out.flush(s, t, g, seg, d);
   for (int dd = d + 1; dd < n_docs; ++dd) out.clear(t, g, seg, dd);
+}
+
+// ------------------------------------------------------------- pieces
+// An event walk over a run of positions, from any stack depth: its events
+// `n`, the net depth change `net`, the least and the most prefix sum of
+// +1 (open) / -1 (close), the empty prefix counted as 0 (`lo` <= 0 <=
+// `hi`), and the most the sum rises above its running least (`rise`).
+// From depth d (closes at the root do nothing) the walk ends at
+// max(d + net, net - lo), its least depth is max(0, d + lo) and its
+// deepest max(d + hi, rise).  Walks compose associatively, in order.
+struct Walk {
+  int n, net, lo, hi, rise;
+};
+
+__device__ __forceinline__ Walk walk_of(int ev) {
+  if (ev < 0) return Walk{0, 0, 0, 0, 0};
+  if ((ev >> 12) & 1) return Walk{1, -1, -1, 0, 0};
+  return Walk{1, 1, 0, 1, 1};
+}
+
+__device__ __forceinline__ Walk compose(const Walk& a, const Walk& b) {
+  return Walk{a.n + b.n, a.net + b.net, min(a.lo, a.net + b.lo),
+              max(a.hi, a.net + b.hi),
+              max(max(a.rise, b.rise), a.net - a.lo + b.hi)};
+}
+
+__device__ __forceinline__ int depth_after(const Walk& w, int d) {
+  return max(d + w.net, w.net - w.lo);
+}
+
+__device__ __forceinline__ Walk shfl_walk_up(const Walk& w, int o) {
+  return Walk{__shfl_up_sync(kFull, w.n, o), __shfl_up_sync(kFull, w.net, o),
+              __shfl_up_sync(kFull, w.lo, o), __shfl_up_sync(kFull, w.hi, o),
+              __shfl_up_sync(kFull, w.rise, o)};
+}
+
+// Inclusive scan of the lanes' walks, in lane order.
+__device__ __forceinline__ Walk warp_scan(Walk w) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const Walk l = shfl_walk_up(w, o);
+    if (lane >= o) w = compose(l, w);
+  }
+  return w;
+}
+
+// The walk of one lane's positions of the window from p0 (positions past
+// the row's end start nothing); `ev` gets each position's event.
+__device__ __forceinline__ Walk lane_walk(const uint8_t* __restrict__ row,
+                                          int length, int p0,
+                                          int (&ev)[kPerLane]) {
+  int b[kPerLane + 3];
+  load_lane(row, length, p0, b);
+  Walk w{0, 0, 0, 0, 0};
+#pragma unroll
+  for (int x = 0; x < kPerLane; ++x) {
+    ev[x] = p0 + x < length ? classify(b[x], b[x + 1], b[x + 2], b[x + 3])
+                            : -1;
+    w = compose(w, walk_of(ev[x]));
+  }
+  return w;
+}
+
+// One warp a window of a segment: the window's walk into walks (S, W).  The
+// grid also clears the merged lanes, n_out of each, for the pieces' atomics.
+__global__ void __launch_bounds__(256)
+piece_windows(const uint8_t* __restrict__ data, int length, int n_windows,
+              Walk* walks, int32_t* matched, int32_t* first, size_t n_out) {
+  const size_t nthreads =
+      static_cast<size_t>(gridDim.x) * gridDim.y * blockDim.x;
+  for (size_t i = (static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x) *
+                      blockDim.x + threadIdx.x;
+       i < n_out; i += nthreads) {
+    matched[i] = 0;
+    first[i] = kNoMatch;
+  }
+  const int w = blockIdx.x * (blockDim.x / 32) + (threadIdx.x >> 5);
+  const int seg = blockIdx.y, lane = threadIdx.x & 31;
+  if (w >= n_windows) return;  // uniform over the warp
+  int ev[kPerLane];
+  Walk acc = warp_scan(lane_walk(data + static_cast<size_t>(seg) * length,
+                                 length, w * kWindow + lane * kPerLane, ev));
+  if (lane == 31) walks[static_cast<size_t>(seg) * n_windows + w] = acc;
+}
+
+// One block a segment, in three steps.
+// 1. Scan the windows' walks from the root: each window's first ordinal,
+//    its depth at its start and its least depth (`ords`, `depth`, `low`,
+//    (S, W)), and the segment's whole walk.
+// 2. Cut the segment into n_pieces runs of windows, as even as whole
+//    windows allow, and write each piece's entry (piece_words): windows,
+//    first ordinal (the events of the windows before it) and depth D.  A
+//    segment deeper than max_depth + 1 goes whole to its first piece, and
+//    its other pieces get no windows.
+// 3. Each ancestor of a piece at level k <= D is the last OPEN reaching
+//    depth k before the piece: it lies in the last window before the piece
+//    whose least depth is below k (after it the depth stays >= k).  One warp
+//    a piece walks back over the windows 128 at a time to find those
+//    windows (kept in the entry's ancestor slots), then one warp a (piece,
+//    level) replays its window's events and puts the ancestor's tag in its
+//    slot.
+__global__ void __launch_bounds__(kPlanThreads)
+piece_plan(const uint8_t* __restrict__ data, int length, int n_windows,
+           int n_pieces, int max_depth, const Walk* __restrict__ walks,
+           int32_t* ords, int32_t* depth, int32_t* low, int32_t* plan) {
+  __shared__ Walk carry[kPlanThreads / 32];
+  __shared__ Walk whole;  // the segment's walk
+  const int seg = blockIdx.x, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = kPlanThreads / 32;
+  const size_t row0 = static_cast<size_t>(seg) * n_windows;
+  const int words = piece_words(max_depth);
+  int32_t* entries = plan + static_cast<size_t>(seg) * n_pieces * words;
+  // 1. each thread folds a run of windows; a block scan gives its prefix
+  const int per = (n_windows + kPlanThreads - 1) / kPlanThreads;
+  const int w0 = min(tid * per, n_windows), w1 = min(w0 + per, n_windows);
+  Walk mine{0, 0, 0, 0, 0};
+  for (int w = w0; w < w1; ++w) mine = compose(mine, walks[row0 + w]);
+  Walk incl = warp_scan(mine);
+  if (lane == 31) carry[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {  // exclusive scan of the warps' totals
+    const Walk ex = shfl_walk_up(warp_scan(carry[lane]), 1);
+    __syncwarp();
+    carry[lane] = lane == 0 ? Walk{0, 0, 0, 0, 0} : ex;
+  }
+  __syncthreads();
+  const Walk before_lane = shfl_walk_up(incl, 1);
+  Walk pre = lane == 0 ? carry[warp] : compose(carry[warp], before_lane);
+  if (tid == kPlanThreads - 1) whole = compose(pre, mine);
+  for (int w = w0; w < w1; ++w) {
+    const Walk x = walks[row0 + w];
+    const int d = depth_after(pre, 0);
+    ords[row0 + w] = pre.n;
+    depth[row0 + w] = d;
+    low[row0 + w] = max(0, d + x.lo);
+    pre = compose(pre, x);
+  }
+  __syncthreads();
+  const bool clipped = whole.rise > max_depth + 1;
+  // 2. the pieces' windows, first ordinals and depths
+  for (int i = tid; i < n_pieces; i += kPlanThreads) {
+    int32_t* e = entries + static_cast<size_t>(i) * words;
+    int c0 = static_cast<int>(static_cast<long long>(i) * n_windows /
+                              n_pieces);
+    int c1 = static_cast<int>(static_cast<long long>(i + 1) * n_windows /
+                              n_pieces);
+    if (clipped) {
+      c0 = 0;
+      c1 = i == 0 ? n_windows : 0;
+    }
+    const bool inside = !clipped && c0 < n_windows;
+    e[0] = c0;
+    e[1] = c1;
+    e[2] = inside ? ords[row0 + c0] : 0;
+    e[3] = inside ? depth[row0 + c0] : 0;
+  }
+  __syncthreads();
+  // 3a. the window of each ancestor; lane l takes the four windows
+  // top - 4 l - j, j < 4, so the lanes go back from `top` in order
+  for (int i = warp; i < n_pieces; i += nwarps) {
+    int32_t* e = entries + static_cast<size_t>(i) * words;
+    int kmax = e[3];  // levels 1..kmax still without a window
+    for (int top = e[0] - 1; kmax > 0 && top >= 0; top -= 128) {
+      int lo[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int w = top - 4 * lane - j;
+        lo[j] = w >= 0 ? low[row0 + w] : INT32_MAX;
+      }
+      // inclusive min over the lanes before and this one
+      int m = min(min(lo[0], lo[1]), min(lo[2], lo[3]));
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(kFull, m, o);
+        if (lane >= o) m = min(m, v);
+      }
+      const int later = __shfl_up_sync(kFull, m, 1);  // later windows' least
+      int above = lane == 0 ? kmax : min(kmax, later);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int w = top - 4 * lane - j;
+        if (w >= 0)
+          for (int k = lo[j] + 1; k <= above; ++k) e[4 + k - 1] = w;
+        above = min(above, lo[j]);
+      }
+      kmax = min(kmax, __shfl_sync(kFull, m, 31));
+    }
+  }
+  __syncthreads();
+  // 3b. each ancestor's tag: the last OPEN of its window reaching its level
+  const uint8_t* row = data + static_cast<size_t>(seg) * length;
+  const int levels = max_depth + 1;
+  for (int pair = warp; pair < n_pieces * levels; pair += nwarps) {
+    int32_t* e = entries + static_cast<size_t>(pair / levels) * words;
+    const int k = pair % levels + 1;
+    if (k > e[3]) continue;  // uniform over the warp
+    const int w = e[4 + k - 1];
+    int ev[kPerLane];
+    const Walk own = lane_walk(row, length, w * kWindow + lane * kPerLane, ev);
+    const Walk incl2 = warp_scan(own);
+    const Walk ex = shfl_walk_up(incl2, 1);
+    int dep = lane == 0 ? depth[row0 + w] : depth_after(ex, depth[row0 + w]);
+    int tag = -1;
+#pragma unroll
+    for (int x = 0; x < kPerLane; ++x) {
+      if (ev[x] < 0) continue;
+      if ((ev[x] >> 12) & 1) {
+        dep = max(dep - 1, 0);
+      } else if (++dep == k) {
+        tag = ev[x] & 0xfff;
+      }
+    }
+    const unsigned has = __ballot_sync(kFull, tag >= 0);
+    tag = __shfl_sync(kFull, tag, has ? 31 - __clz(has) : 0);
+    if (lane == 0) e[4 + k - 1] = tag;
+  }
 }
 
 Tables make_tables(const void* tagmask, const void* pw, const void* pb,
@@ -801,13 +1087,15 @@ int launch_events_nw(const void* events, int n_docs, int n_events,
 template <class Out, int NW>
 int launch_bytes_nw(const void* data, int n_segments, int length,
                     const void* starts, int n_docs, const Tables& t,
-                    const Entries& e, const Out& out, void* stream) {
+                    const Entries& e, const Out& out, const int32_t* plan,
+                    int n_pieces, void* stream) {
   const size_t smem =
       smem_bytes(t.n_tags, t.wb, t.qb, t.max_depth, Out::kSparse, true);
-  return launch(bytes_kernel<Out, NW>, dim3(t.n_blocks, n_segments), 64,
-                smem, stream, static_cast<const uint8_t*>(data), length,
+  return launch(bytes_kernel<Out, NW>,
+                dim3(t.n_blocks, n_segments * n_pieces), 64, smem, stream,
+                static_cast<const uint8_t*>(data), length,
                 static_cast<const int32_t*>(starts), n_docs, t, e.ent,
-                e.toff, out);
+                e.toff, out, plan, n_pieces);
 }
 
 // Calls f(std::integral_constant<int, NW>) with NW = WB / 32 rounded up to
@@ -835,17 +1123,58 @@ int launch_events(const void* events, int n_docs, int n_events,
   });
 }
 
+int n_windows_of(int length) { return (length + kWindow - 1) / kWindow; }
+
+// int32 words of the piece plan's scratch, after the gather entries: the
+// windows' walks (S, W), their first ordinals, depths and least depths
+// (S, W) each, and the pieces' entries (S, P, piece_words).
+size_t piece_scratch_words(int n_segments, int n_pieces, int length,
+                           int max_depth) {
+  const size_t sw = static_cast<size_t>(n_segments) * n_windows_of(length);
+  return sw * (sizeof(Walk) / 4 + 3) +
+         static_cast<size_t>(n_segments) * n_pieces * piece_words(max_depth);
+}
+
+// The piece plan of S one-document segments, into `scratch` (see
+// piece_scratch_words), with the dense output cleared for the merge;
+// `*plan` gets the pieces' entries.
+int plan_pieces(const void* data, int n_segments, int length, int n_pieces,
+                int max_depth, const DenseOut& out, const Tables& t,
+                int32_t* scratch, void* stream, const int32_t** plan) {
+  const int n_windows = n_windows_of(length);
+  const size_t sw = static_cast<size_t>(n_segments) * n_windows;
+  Walk* walks = reinterpret_cast<Walk*>(scratch);
+  int32_t* ords = scratch + sw * (sizeof(Walk) / 4);
+  int32_t* depth = ords + sw;
+  int32_t* low = depth + sw;
+  int32_t* entries = low + sw;
+  *plan = entries;
+  const size_t n_out = static_cast<size_t>(n_segments) * t.n_blocks * t.qb;
+  const int per_block = 256 / 32;  // windows, one a warp
+  int err = launch(piece_windows,
+                   dim3((n_windows + per_block - 1) / per_block, n_segments),
+                   256, 0, stream, static_cast<const uint8_t*>(data), length,
+                   n_windows, walks, out.matched, out.first, n_out);
+  if (err != 0) return err;
+  return launch(piece_plan, dim3(n_segments), kPlanThreads, 0, stream,
+                static_cast<const uint8_t*>(data), length, n_windows,
+                n_pieces, max_depth, static_cast<const Walk*>(walks), ords,
+                depth, low, entries);
+}
+
 template <class Out>
 int launch_bytes(const void* data, int n_segments, int length,
                  const void* starts, int n_docs, const Tables& t,
-                 const Out& out, void* scratch, void* stream) {
+                 const Out& out, void* scratch, const int32_t* plan,
+                 int n_pieces, void* stream) {
   if (n_docs >= kMaxSlots) return static_cast<int>(cudaErrorInvalidValue);
   Entries e;
   const int err = prepare(t, scratch, stream, &e);
   if (err != 0) return err;
   return with_words_per_lane(t.wb, [&](auto nw) {
     return launch_bytes_nw<Out, decltype(nw)::value>(
-        data, n_segments, length, starts, n_docs, t, e, out, stream);
+        data, n_segments, length, starts, n_docs, t, e, out, plan, n_pieces,
+        stream);
   });
 }
 
@@ -870,6 +1199,34 @@ long long sf_scratch_words(int n_blocks, int n_tags, int wb) {
   return static_cast<long long>(scratch_words(n_blocks, n_tags, wb));
 }
 
+// int32 words a dense byte launch in n_pieces > 1 pieces takes after the
+// gather entries (its piece plan).
+long long sf_piece_words(int n_segments, int n_pieces, int length,
+                         int max_depth) {
+  return static_cast<long long>(
+      piece_scratch_words(n_segments, n_pieces, length, max_depth));
+}
+
+// Thread blocks of the dense byte kernel that the current card holds at
+// once (blocks an SM at its shared memory, times the SMs); -1 on error.
+int sf_bytes_resident(int n_tags, int wb, int qb, int max_depth) {
+  const size_t smem = smem_bytes(n_tags, wb, qb, max_depth, false, true);
+  return with_words_per_lane(wb, [&](auto nw) {
+    const auto kernel = bytes_kernel<DenseOut, decltype(nw)::value>;
+    int per_sm = 0, dev = 0, sms = 0;
+    if (cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem)) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 64,
+                                                      smem) != cudaSuccess ||
+        cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      return -1;
+    return per_sm * sms;
+  });
+}
+
 int sf_events(const void* events, int n_docs, int n_events,
               const void* tagmask, const void* pw, const void* pb,
               const void* selfloop, const void* init, const void* acc_word,
@@ -879,7 +1236,7 @@ int sf_events(const void* events, int n_docs, int n_events,
   const Tables t = make_tables(tagmask, pw, pb, selfloop, init, acc_word,
                                acc_bit, n_blocks, n_tags, wb, qb, max_depth);
   const DenseOut out{static_cast<int32_t*>(matched),
-                     static_cast<int32_t*>(first), 1};
+                     static_cast<int32_t*>(first), 1, false};
   return launch_events(events, n_docs, n_events, t, out, scratch, stream);
 }
 
@@ -899,18 +1256,30 @@ int sf_events_sparse(const void* events, int n_docs, int n_events,
   return launch_events(events, n_docs, n_events, t, out, scratch, stream);
 }
 
+// n_pieces > 1 runs each one-document segment (n_docs 1) as that many
+// pieces in time; the scratch then holds sf_piece_words more words.
 int sf_bytes(const void* data, int n_segments, int length, const void* starts,
              int n_docs, const void* tagmask, const void* pw, const void* pb,
              const void* selfloop, const void* init, const void* acc_word,
              const void* acc_bit, int n_blocks, int n_tags, int wb, int qb,
              int max_depth, void* matched, void* first, void* scratch,
-             void* stream) {
+             int n_pieces, void* stream) {
+  if (n_pieces < 1 || (n_pieces > 1 && (n_docs != 1 || length < 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
   const Tables t = make_tables(tagmask, pw, pb, selfloop, init, acc_word,
                                acc_bit, n_blocks, n_tags, wb, qb, max_depth);
   const DenseOut out{static_cast<int32_t*>(matched),
-                     static_cast<int32_t*>(first), n_docs};
+                     static_cast<int32_t*>(first), n_docs, n_pieces > 1};
+  const int32_t* plan = nullptr;
+  if (n_pieces > 1) {
+    const int err = plan_pieces(
+        data, n_segments, length, n_pieces, max_depth, out, t,
+        static_cast<int32_t*>(scratch) + scratch_words(n_blocks, n_tags, wb),
+        stream, &plan);
+    if (err != 0) return err;
+  }
   return launch_bytes(data, n_segments, length, starts, n_docs, t, out,
-                      scratch, stream);
+                      scratch, plan, n_pieces, stream);
 }
 
 int sf_bytes_sparse(const void* data, int n_segments, int length,
@@ -928,7 +1297,7 @@ int sf_bytes_sparse(const void* data, int n_segments, int length,
                       static_cast<int32_t*>(buf), static_cast<int32_t*>(count),
                       n_docs, cap};
   return launch_bytes(data, n_segments, length, starts, n_docs, t, out,
-                      scratch, stream);
+                      scratch, nullptr, 1, stream);
 }
 
 }  // extern "C"

@@ -23,6 +23,11 @@ over (document or segment, block, word); the sparse ones are those
 followed by :func:`ref.sparse_epilogue`).  There is no fallback from one
 to the other.
 
+K2 over long one-document segments runs each (segment, state block) chain
+as P pieces in time, so that a launch of few documents fills the card:
+:func:`pieces_for` picks P from the launch's shape and the card's
+resident thread blocks, and the launch plans the pieces on the device.
+
 Block tables are the bit-packed per-block layout of
 :func:`repro_torch.kernels.blocks.state_layout`, as int32 bit views:
 tagmask (G, T+1, WB), pw/pb (G, WB, 32), selfloop/init (G, WB),
@@ -31,10 +36,12 @@ acc_word/acc_bit (G, QB).  ``max_depth`` is the plan's stack bound.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
 
+from .. import tracing
 from . import ref
 from .launches import count_launch
 from .ref import NO_MATCH, PAD, fuse_events  # noqa: F401
@@ -44,6 +51,18 @@ SMEM_LIMIT = 232_448
 #: most packed words a block may have (a chain's lane owns up to 32)
 MAX_WORDS = 1024
 _INT32_MAX = 2 ** 31 - 1
+#: most thread blocks along a launch grid's second axis
+_GRID_Y = 65535
+#: byte positions of one window of the byte kernels' event ring; a piece
+#: of a segment starts on a window edge
+WINDOW = 256
+#: the shortest piece K2 cuts a segment into, in windows: a shorter one
+#: would spend on its plan and its ancestors' replay what it saves
+MIN_PIECE_WINDOWS = 32
+#: the most waves of resident blocks K2's pieces may take: more waves
+#: bring a launch's time at most a few % nearer its chains over the card's
+#: blocks, and each wave adds its pieces' set-up
+MAX_WAVES = 4
 
 
 def _table_dims(tables, device) -> tuple[int, int, int, int]:
@@ -135,12 +154,13 @@ def _slots_check(lib, n_docs: int) -> None:
                          f"kernel's {most}")
 
 
-def _scratch(lib, g: int, n_tags: int, wb: int,
-             device: torch.device) -> torch.Tensor:
-    """The launch's scratch: its blocks' gather entries.  The kernels run
-    on the stream they were launched on; freed when the call returns, the
-    buffer is reused only by later work on that stream, after them."""
-    return torch.empty(int(lib.sf_scratch_words(g, n_tags, wb)),
+def _scratch(lib, g: int, n_tags: int, wb: int, device: torch.device,
+             extra: int = 0) -> torch.Tensor:
+    """The launch's scratch: its blocks' gather entries, then ``extra``
+    words (K2's piece plan).  The kernels run on the stream they were
+    launched on; freed when the call returns, the buffer is reused only by
+    later work on that stream, after them."""
+    return torch.empty(int(lib.sf_scratch_words(g, n_tags, wb)) + extra,
                        dtype=torch.int32, device=device)
 
 
@@ -245,11 +265,15 @@ def stream_filter_bytes(data: torch.Tensor, starts: torch.Tensor,
     with the next document's bytes, as on the TPU.  An event at byte
     ``pos >= starts[d+1]`` first flushes document d's lanes, re-roots the
     stack and restarts the event ordinal.  Returns matched/first (S, G,
-    D, QB) int32; empty document slots hold 0 and ``NO_MATCH``.
+    D, QB) int32; empty document slots hold 0 and ``NO_MATCH``.  On the
+    card a launch of few long one-document segments runs each chain in
+    pieces (:func:`pieces_for`), with the same result.  While a profiler
+    runs, each launch adds its chains, G·S·P, to the open request's
+    ``k2_chains`` counter.
     """
     dev = data.device
     tables = (tagmask, pw, pb, selfloop, init, acc_word, acc_bit)
-    g, n_tags, wb, qb = _table_dims(tables, dev)
+    _table_dims(tables, dev)
     _check(data, "data", torch.uint8, dev)
     _check(starts, "starts", torch.int32, dev)
     if data.dim() != 2 or starts.dim() != 2 \
@@ -261,31 +285,94 @@ def stream_filter_bytes(data: torch.Tensor, starts: torch.Tensor,
                                          max_depth=max_depth)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
+    return _launch_bytes(data, starts, tables, max_depth=max_depth)
+
+
+stream_filter_bytes.launches = 0
+
+
+def _launch_bytes(data: torch.Tensor, starts: torch.Tensor, tables,
+                  *, max_depth: int, pieces: int | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2 on checked card tensors, each segment's chain in ``pieces``
+    pieces (by default :func:`pieces_for`'s; the tests name their own)."""
     from . import build
 
+    dev = data.device
+    g, n_tags, wb, qb = _table_dims(tables, dev)
     lib = build.load("stream_filter")
     _smem_check(lib, n_tags, wb, qb, max_depth, bytes_=True)
     s, length = data.shape
     d = starts.shape[1] - 1
     _slots_check(lib, d)
-    if s > 65535:
-        raise ValueError(f"{s} segments exceed the grid's 65535")
+    if s > _GRID_Y:
+        raise ValueError(f"{s} segments exceed the grid's {_GRID_Y}")
     matched = torch.empty((s, g, d, qb), dtype=torch.int32, device=dev)
     first = torch.empty((s, g, d, qb), dtype=torch.int32, device=dev)
     if s == 0 or g == 0:
         return matched, first
+    if pieces is None:
+        pieces = pieces_for(g, s, d, length, _resident_blocks(
+            dev.index, n_tags, wb, qb, int(max_depth)))
+    if pieces < 1 or (pieces > 1 and (d != 1 or length == 0
+                                      or s * pieces > _GRID_Y)):
+        raise ValueError(f"{pieces} pieces of {s} segments of {length} "
+                         f"bytes and {d} document slots: pieces need one "
+                         f"document a segment, bytes, and {_GRID_Y} rows")
+    extra = 0 if pieces == 1 else int(
+        lib.sf_piece_words(s, pieces, length, int(max_depth)))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.sf_bytes(
             _ptr(data), s, length, _ptr(starts), d, *map(_ptr, tables), g,
             n_tags, wb, qb, int(max_depth), _ptr(matched), _ptr(first),
-            _ptr(_scratch(lib, g, n_tags, wb, dev)), ctypes.c_void_p(stream))
+            _ptr(_scratch(lib, g, n_tags, wb, dev, extra)), pieces,
+            ctypes.c_void_p(stream))
     _raise_on(err, "stream_filter_bytes")
     count_launch(stream_filter_bytes)
+    tracing.count("k2_chains", g * s * pieces)
     return matched, first
 
 
-stream_filter_bytes.launches = 0
+def pieces_for(n_blocks: int, n_segments: int, n_docs: int, length: int,
+               resident: int) -> int:
+    """Pieces in time of each (segment, block) chain of a dense byte launch
+    (K2).  A launch of C = ``n_blocks * n_segments`` chains in P pieces
+    runs in ceil(C·P / ``resident``) waves of the card's resident thread
+    blocks, each a piece long, so it takes about ceil(C·P / resident) / P
+    of the one-piece time: the P with the least of that, up to
+    :data:`MAX_WAVES` waves, the fewest pieces on a tie.  1 when the
+    segments are packed (``n_docs > 1``) or the chains already fill the
+    card; never a piece shorter than :data:`MIN_PIECE_WINDOWS` windows of
+    a ``length``-byte segment."""
+    chains = n_blocks * n_segments
+    if n_docs > 1 or chains <= 0 or chains >= resident:
+        return 1
+    most = min(MAX_WAVES * resident // chains,
+               -(-length // WINDOW) // MIN_PIECE_WINDOWS,
+               _GRID_Y // n_segments)
+    best, best_waves = 1, 1
+    for p in range(2, most + 1):
+        waves = -(-chains * p // resident)
+        if waves * best < best_waves * p:
+            best, best_waves = p, waves
+    return best
+
+
+@functools.lru_cache(maxsize=64)
+def _resident_blocks(device_index: int, n_tags: int, wb: int, qb: int,
+                     max_depth: int) -> int:
+    """K2's thread blocks that card ``device_index`` holds at once for a
+    plan of this size (the occupancy API: blocks an SM times the SMs)."""
+    from . import build
+
+    lib = build.load("stream_filter")
+    with torch.cuda.device(device_index):
+        n = int(lib.sf_bytes_resident(n_tags, wb, qb, max_depth))
+    if n < 0:
+        raise RuntimeError("stream_filter_bytes: the residency query of "
+                           f"device {device_index} failed")
+    return n
 
 
 def compact_events(data: torch.Tensor

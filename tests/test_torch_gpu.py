@@ -11,9 +11,13 @@ The first test builds the kernels (``build/repro_torch/``).  Outputs are
 (gathered values, exact): exact equality, with the
 sparse kernels' rows compared as sorted sets (their order on the card is
 not fixed) and their counts exactly.  K5 is checked on both of its
-paths (16-byte vector, scalar), the serve loop on worker streams against
-the synchronous route, and a hot swap with batches in flight against the
-live set of each batch's epoch.  The program's spans: one launch and two
+paths (16-byte vector, scalar), K2 with each chain in pieces in time (at
+P = 1, 2, 3, 7 and the shape rule's own P on segments aimed at the
+pieces' edges, past ``max_depth`` where a segment runs whole, under a root
+far behind the cuts; the packed K2 and K3 in one piece; the chains a
+request counts; the sharded and 2-D byte paths), the serve loop on worker
+streams against the synchronous route, and a hot swap with batches in
+flight against the live set of each batch's epoch.  The program's spans: one launch and two
 readbacks a dense request, and the two kernels that launch starts.
 Query-sharded plans: K1-K4 over the
 folded P·G blocks with tombstoned columns, K6 over the parts folded into
@@ -49,6 +53,7 @@ steps count equal to a meta grid's count.  The file imports
 nothing of JAX, so it runs where only the port is installed.
 """
 import contextlib
+import re
 import sys
 import threading
 import time
@@ -146,6 +151,179 @@ def test_bytes_kernel_equals_plain(cuda, pack):
                                     max_depth=64)
     assert pm.any()
     assert torch.equal(km.cpu(), pm) and torch.equal(kf.cpu(), pf)
+
+
+# ------------------------------------------------------------ K2 in pieces
+PIECE_WINDOWS = 96       # windows of one segment of the piece tests
+
+
+def place(buf, at, pattern):
+    """``buf`` with spaces before the last match of ``pattern`` that starts
+    at or before byte ``at``, so that it starts at ``at``: text between
+    elements, which moves no event but the ones after it."""
+    j = max(m.start() for m in re.finditer(pattern, buf) if m.start() <= at)
+    return buf[:j] + b" " * (at - j) + buf[j:]
+
+
+def piece_segments(dtd, n_pieces, seed):
+    """One-document segments of PIECE_WINDOWS windows aimed at the edges of
+    ``n_pieces`` equal pieces.  At the first cut: an open's '<' ends a
+    piece and its name starts the next; a close's '</' ends one; a close
+    starts one.  A stray close at depth 0 opens a document; a document
+    shorter than the first piece leaves the other pieces no events; from
+    3 pieces, text inside an element covers the whole second piece."""
+    length = PIECE_WINDOWS * sf.WINDOW
+    cut = PIECE_WINDOWS // n_pieces * sf.WINDOW
+    cut2 = 2 * PIECE_WINDOWS // n_pieces * sf.WINDOW
+
+    def doc(i, nodes):
+        return encode_bytes(gen_document(dtd, target_nodes=nodes,
+                                         max_depth=12, seed=seed + i),
+                            text_fill=5)
+
+    stray = doc(3, 600)
+    bufs = [place(doc(0, 1100), cut - 1, rb"<[^/]"),
+            place(doc(1, 1100), cut - 2, rb"</"),
+            place(doc(2, 1100), cut, rb"</"),
+            stray[stray.index(b"</"):][:4] + b">" + stray,
+            doc(4, 40)]
+    if n_pieces >= 3:
+        mid = doc(5, 900)
+        j = max(m.end() for m in re.finditer(rb"<[^/<>]{2}>", mid)
+                if m.end() <= cut)
+        bufs.append(mid[:j] + b" " * (cut2 - j + sf.WINDOW) + mid[j:])
+    assert all(len(b) <= length for b in bufs)
+    data = np.zeros((len(bufs), length), np.uint8)
+    for r, b in enumerate(bufs):
+        data[r, :len(b)] = np.frombuffer(b, np.uint8)
+    return torch.from_numpy(data), torch.from_numpy(one_doc_starts(len(bufs)))
+
+
+def rule_pieces(tables, n_segments, length, max_depth=64):
+    """The shape rule's P for ``n_segments`` one-document segments of
+    ``length`` bytes over these card tables."""
+    g, n_tags, wb, qb = sf._table_dims(tables, tables[0].device)
+    return sf.pieces_for(g, n_segments, 1, length, sf._resident_blocks(
+        tables[0].device.index, n_tags, wb, qb, max_depth))
+
+
+def packed_long(dtd):
+    """Three documents of 40 to 1,100 elements packed into segments of
+    32 KB, several to a segment: (data, starts) and the byte batch."""
+    bufs = [encode_bytes(gen_document(dtd, target_nodes=n, seed=50 + i),
+                         text_fill=5) for i, n in enumerate((1100, 40, 900))]
+    bb = ByteBatch.from_buffers(bufs, bucket=256)
+    sp = pack_segments(bb, target_len=32 * 1024)
+    assert sp.starts.shape[1] > 2
+    return torch.from_numpy(sp.data), torch.from_numpy(sp.starts), bb
+
+
+@pytest.mark.parametrize("pieces", [1, 2, 3, 7, None],
+                         ids=["P1", "P2", "P3", "P7", "rule"])
+def test_split_bytes_kernel_equals_plain(cuda, pieces):
+    """K2 with each segment's chain in P pieces equals the one-piece launch
+    and the plain version bit for bit, on segments aimed at the pieces'
+    edges (see ``piece_segments``); ``None`` is the shape rule's own P,
+    which splits these segments."""
+    dtd, d, nfa = workload(200, seed=2)
+    cpu, gpu = plans(nfa, d, cuda, blk=64)
+    n = 3 if pieces is None else max(pieces, 2)
+    data, starts = piece_segments(dtd, n, seed=30 + n)
+    kt = [gpu.plan_[k] for k in KB]
+    dc, sc = data.to(cuda), starts.to(cuda)
+    if pieces is None:
+        assert rule_pieces(kt, data.shape[0], data.shape[1]) > 1
+        km, kf = sf.stream_filter_bytes(dc, sc, *kt, max_depth=64)
+    else:
+        km, kf = sf._launch_bytes(dc, sc, kt, max_depth=64, pieces=pieces)
+    one_m, one_f = sf._launch_bytes(dc, sc, kt, max_depth=64, pieces=1)
+    pm, pf = sf.stream_filter_bytes(data, starts,
+                                    *(cpu.plan_[k] for k in KB),
+                                    max_depth=64)
+    assert pm.any()
+    assert torch.equal(km.cpu(), pm) and torch.equal(kf.cpu(), pf)
+    assert torch.equal(one_m.cpu(), pm) and torch.equal(one_f.cpu(), pf)
+
+
+@pytest.mark.parametrize("pieces", [2, 5])
+def test_split_bytes_kernel_finds_a_far_root(cuda, pieces):
+    """Documents of about 80 KB under one root element: each cut's root
+    ancestor lies at the first window, more than 128 windows back (one
+    step of the plan's walk), and still the pieces equal the one-piece
+    launch and the plain version."""
+    dtd, d, nfa = workload(200, seed=5)
+    cpu, gpu = plans(nfa, d, cuda, blk=64)
+    bufs = [b"<zz>" + encode_bytes(gen_document(
+        dtd, target_nodes=5500, max_depth=11, seed=70 + i), text_fill=5)
+        + b"</zz>" for i in range(2)]
+    bb = ByteBatch.from_buffers(bufs, bucket=256)
+    windows = bb.data.shape[1] // sf.WINDOW
+    assert (pieces - 1) * windows // pieces > 128    # the last cut
+    data = torch.from_numpy(bb.data)
+    starts = torch.from_numpy(one_doc_starts(len(bufs)))
+    kt = [gpu.plan_[k] for k in KB]
+    km, kf = sf._launch_bytes(data.to(cuda), starts.to(cuda), kt,
+                              max_depth=64, pieces=pieces)
+    one_m, one_f = sf._launch_bytes(data.to(cuda), starts.to(cuda), kt,
+                                    max_depth=64, pieces=1)
+    pm, pf = sf.stream_filter_bytes(data, starts,
+                                    *(cpu.plan_[k] for k in KB),
+                                    max_depth=64)
+    assert pm.any()
+    assert torch.equal(km.cpu(), pm) and torch.equal(kf.cpu(), pf)
+    assert torch.equal(one_m.cpu(), pm) and torch.equal(one_f.cpu(), pf)
+
+
+@pytest.mark.parametrize("pieces", [2, 3, 7])
+def test_split_bytes_kernel_past_max_depth_runs_whole(cuda, pieces):
+    """At ``max_depth`` 5, documents of depth 12 clip the stack, so their
+    segments run whole in their first piece; documents of depth 4 beside
+    them split.  Both equal the one-piece launch and the plain version."""
+    dtd, d, nfa = workload(300, seed=3)
+    cpu, gpu = plans(nfa, d, cuda, max_depth=5)
+    bufs = [encode_bytes(gen_document(dtd, target_nodes=700, max_depth=depth,
+                                      seed=40 + i), text_fill=5)
+            for i, depth in enumerate((12, 4, 12, 4))]
+    bb = ByteBatch.from_buffers(bufs, bucket=256)
+    data = torch.from_numpy(bb.data)
+    starts = torch.from_numpy(one_doc_starts(len(bufs)))
+    kt = [gpu.plan_[k] for k in KB]
+    km, kf = sf._launch_bytes(data.to(cuda), starts.to(cuda), kt,
+                              max_depth=5, pieces=pieces)
+    one_m, one_f = sf._launch_bytes(data.to(cuda), starts.to(cuda), kt,
+                                    max_depth=5, pieces=1)
+    pm, pf = sf.stream_filter_bytes(data, starts,
+                                    *(cpu.plan_[k] for k in KB), max_depth=5)
+    assert pm.any()
+    assert torch.equal(km.cpu(), pm) and torch.equal(kf.cpu(), pf)
+    assert torch.equal(one_m.cpu(), pm) and torch.equal(one_f.cpu(), pf)
+
+
+def test_split_leaves_packed_k2_and_k3_whole(cuda):
+    """The shape rule keeps packed segments (D > 1) in one piece, and K3
+    never splits: both equal their plain versions on long documents (their
+    chains are counted in ``test_k2_launches_count_their_chains_on_card``)."""
+    dtd, d, nfa = workload(200, seed=4)
+    cpu, gpu = plans(nfa, d, cuda, blk=64)
+    data, starts, bb = packed_long(dtd)
+    kt, pt = [gpu.plan_[k] for k in KB], [cpu.plan_[k] for k in KB]
+    km, kf = sf.stream_filter_bytes(data.to(cuda), starts.to(cuda), *kt,
+                                    max_depth=64)
+    pm, pf = sf.stream_filter_bytes(data, starts, *pt, max_depth=64)
+    assert pm.any()
+    assert torch.equal(km.cpu(), pm) and torch.equal(kf.cpu(), pf)
+    data = torch.from_numpy(bb.data)
+    starts = torch.from_numpy(one_doc_starts(bb.batch_size))
+    rows = torch.arange(bb.batch_size, dtype=torch.int32)[:, None]
+    lane_cls = lane_classes(cpu, "cpu")
+    kb, kn = sf.stream_filter_bytes_sparse(
+        data.to(cuda), starts.to(cuda), rows.to(cuda), *kt,
+        lane_cls.to(cuda), cap=10 ** 5, max_depth=64)
+    pb, pn = sf.stream_filter_bytes_sparse(data, starts, rows, *pt, lane_cls,
+                                           cap=10 ** 5, max_depth=64)
+    assert int(kn[0]) == int(pn[0]) > 0
+    np.testing.assert_array_equal(sorted_rows(kb, kn, 10 ** 5),
+                                  sorted_rows(pb, pn, 10 ** 5))
 
 
 def test_engine_on_card_equals_engine_on_cpu(cuda):
@@ -735,6 +913,122 @@ def test_dense_request_spans_count_one_launch_on_card(cuda):
     assert sum("build_entries" in k for k in kernels) == 6
     assert sum("bytes_kernel" in k for k in kernels) == 6
     tracing.clear()
+
+
+def test_k2_launches_count_their_chains_on_card(cuda):
+    """Under the profiler each K2 launch adds its G·S·P chains to the open
+    request's ``k2_chains``: at P = 1, 2, 3, 7 and at the shape rule's own
+    P; a packed launch adds G·S, and K3 adds nothing.  (One profiler
+    session, after the test above, which counts the card's kernels in the
+    process's first.)"""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import tracing
+
+    dtd, d, nfa = workload(200, seed=2)
+    cpu, gpu = plans(nfa, d, cuda, blk=64)
+    kt = [gpu.plan_[k] for k in KB]
+    g = kt[0].shape[0]
+    data, starts = (x.to(cuda) for x in piece_segments(dtd, 3, seed=33))
+    packed, pstarts, bb = packed_long(dtd)
+    rows = torch.arange(bb.batch_size, dtype=torch.int32)[:, None]
+    rule = rule_pieces(kt, data.shape[0], data.shape[1])
+    launches = [(lambda p=p: sf._launch_bytes(data, starts, kt, max_depth=64,
+                                              pieces=p)) for p in (1, 2, 3, 7)]
+    launches += [
+        lambda: sf.stream_filter_bytes(data, starts, *kt, max_depth=64),
+        lambda: sf.stream_filter_bytes(packed.to(cuda), pstarts.to(cuda), *kt,
+                                       max_depth=64),
+        lambda: sf.stream_filter_bytes_sparse(
+            torch.from_numpy(bb.data).to(cuda),
+            torch.from_numpy(one_doc_starts(bb.batch_size)).to(cuda),
+            rows.to(cuda), *kt, lane_classes(cpu, cuda), cap=10 ** 5,
+            max_depth=64)]
+    counted = []
+    with profile(activities=[ProfilerActivity.CPU]):
+        for launch in launches:
+            with tracing.span("stage.request", root=True) as sp:
+                launch()
+            counted.append(sp.attrs.get("k2_chains", 0))
+        torch.cuda.synchronize()
+    tracing.clear()
+    s = data.shape[0]
+    assert rule > 1
+    assert counted == [g * s * p for p in (1, 2, 3, 7, rule)] \
+        + [g * packed.shape[0], 0]
+
+
+def long_workload(n_docs):
+    """``serve_workload``'s profiles over documents of about 20 KB, whose
+    byte launches the shape rule splits into pieces."""
+    from repro_torch.data.filter_stage import TEXT_FILL
+
+    dtd, d, qs, _ = serve_workload(n_docs=1)
+    raw = [encode_bytes(gen_document(dtd, target_nodes=1500, seed=60 + i),
+                        text_fill=TEXT_FILL) for i in range(n_docs)]
+    return dtd, d, qs, raw
+
+
+def test_dense_request_counts_its_k2_chains_on_card(cuda):
+    """A profiled dense request of long documents counts the chains of its
+    K2 launch, G·S·P with P the shape rule's, on its ``stage.request``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import tracing
+    from repro_torch.data.filter_stage import FilterStage
+
+    _, d, qs, raw = long_workload(8)
+    st = FilterStage(qs, d, n_shards=2, batch_size=4, device=str(cuda))
+    list(st.route_bytes(raw))                     # build, load, warm up
+    torch.cuda.synchronize()
+    tracing.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        list(st.route_bytes(raw))
+        torch.cuda.synchronize()
+    roots = [s for s in tracing.spans() if s.name == "stage.request"]
+    kt = st._eng._block_tables()
+    g, n_tags, wb, qb = sf._table_dims(kt, kt[0].device)
+    resident = sf._resident_blocks(kt[0].device.index, n_tags, wb, qb,
+                                   int(st._eng.plan_.meta["max_depth"]))
+    want = []
+    for i in (0, 4):
+        length = ByteBatch.from_buffers(
+            raw[i:i + 4], bucket=st.byte_bucket).data.shape[1]
+        pieces = sf.pieces_for(g, 4, 1, length, resident)
+        assert pieces > 1
+        want.append(g * 4 * pieces)
+    assert [r.attrs["k2_chains"] for r in roots] == want
+    tracing.clear()
+
+
+def test_sharded_byte_paths_in_pieces_equal_cpu(cuda):
+    """Long documents through the query-sharded byte filter on the card,
+    over a 1 x 4 grid of it, and through a 2 x 2 stage: the shape rule
+    splits each launch into pieces, and every result equals the CPU's."""
+    from repro_torch.data.filter_stage import FilterStage
+
+    _, d, qs, raw = long_workload(8)
+    nfa = compile_queries(qs, d, shared=True)
+    cpu = engines.create("streaming", nfa, dictionary=d, device="cpu")
+    gpu = engines.create("streaming", nfa, dictionary=d, device=cuda)
+    csp, gsp = cpu.plan_sharded(4), gpu.plan_sharded(4)
+    bb = ByteBatch.from_buffers(raw, bucket=1024)
+    want = cpu.filter_bytes_sharded(bb, csp)
+    one = gpu.filter_bytes_sharded(bb, gsp)
+    folded = gpu._folded(gsp.stacked())
+    assert rule_pieces(folded, len(raw), bb.data.shape[1]) > 1
+    grid = gpu.filter_bytes_sharded(bb, gsp, mesh=card_mesh(cuda, 1, 4))
+    for got in (one, grid):
+        np.testing.assert_array_equal(got.matched, want.matched)
+        np.testing.assert_array_equal(got.first_event, want.first_event)
+
+    def stage(device, **more):
+        return FilterStage(qs, d, n_shards=2, keep_unmatched=True,
+                           batch_size=8, device=device, **more)
+
+    two_d = stage(str(cuda), query_shards=2, data_shards=2,
+                  mesh=card_mesh(cuda, 2, 2))
+    assert stage_routes(two_d, raw) == stage_routes(stage("cpu"), raw)
 
 
 # ------------------------------------------------------ query-sharded plans
