@@ -8,23 +8,25 @@ document of the window is held against the entry of its payload.  Two
 numbers are compared, each with the limit 0: answers that differ
 (``mismatched``) and answers that never came or ended in an error
 (``unanswered``).  The guarantee is exact delivery, so any difference
-fails.
+fails.  The reference and the control are the profile language's
+(``languages/<kind>.py``).
 """
 from __future__ import annotations
 
 import numpy as np
 
-from .reference.automaton import Automaton
+from . import languages
 from .reference.route import deliveries
 
 LIMITS = {"mismatched": 0, "unanswered": 0}
 
 
-def expected(inputs, n_shards: int, automaton=None
+def expected(inputs, n_shards: int, matcher=None
              ) -> tuple[list[dict[int, np.ndarray]], list[int]]:
     """The reference's answer and match count for every payload of the
-    pool.  ``automaton`` stands in for the reference's own (the control)."""
-    auto = automaton or Automaton(inputs.profiles, inputs.tag_names)
+    pool.  ``matcher`` stands in for the reference's own (the control)."""
+    auto = matcher or languages.get(inputs.kind).matcher(inputs.profiles,
+                                                         inputs.tag_names)
     answers, counts = [], []
     for p in inputs.payloads:
         m = auto.matches(p)
@@ -55,18 +57,3 @@ def verdict(mismatched: int, unanswered: int) -> tuple[bool, dict]:
     ok = all(checks[k] <= LIMITS[k] for k in LIMITS)
     return ok, {k: {"value": v, "limit": LIMITS[k]}
                 for k, v in checks.items()}
-
-
-class StacklessAutomaton(Automaton):
-    """The control: the reference with the parent-child guarantee
-    broken.  Every ``/`` step is taken as ``//``, the filter a design
-    without the paper's tag stack would give (§3.5): faster, and wrong
-    wherever a profile needs a parent, not just an ancestor."""
-
-    def __init__(self, profiles: list[str], tag_names: list[str]):
-        super().__init__([_all_descendant(p) for p in profiles], tag_names)
-
-
-def _all_descendant(profile: str) -> str:
-    out = profile.replace("//", "/").replace("/", "//")
-    return out if out.startswith("/") else "//" + out

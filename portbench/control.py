@@ -1,6 +1,8 @@
 """The control of ``correct``: the reference put in the program's place
-with one guarantee broken (``check.StacklessAutomaton``: every ``/`` step
-taken as ``//``), read at a cell's own size.
+with one guarantee broken, read at a cell's own size.  The profile
+language holds it (``languages/<kind>.py``'s ``control``): for linear
+paths every ``/`` step taken as ``//``; for twigs the root-to-leaf paths
+without the join.
 
     python3 portbench/control.py --workload <name> --seed <n> [--seed <n> ...]
 
@@ -19,7 +21,7 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from portbench import check, inputs, spec  # noqa: E402
+from portbench import check, inputs, languages, spec  # noqa: E402
 
 
 def reading(workload: str, seed: int) -> dict:
@@ -28,8 +30,8 @@ def reading(workload: str, seed: int) -> dict:
     config = spec.config(cell["config"])
     inp = inputs.make(config, spec.traffic(cell["traffic"]), seed)
     want, _ = check.expected(inp, config["shards"])
-    got, _ = check.expected(inp, config["shards"], check.StacklessAutomaton(
-        inp.profiles, inp.tag_names))
+    got, _ = check.expected(inp, config["shards"], languages.get(
+        inp.kind).control(inp.profiles, inp.tag_names))
     wrong = [not check.same(g, w) for g, w in zip(got, want)]
     return {"workload": workload, "seed": seed, "pool": len(wrong),
             "mismatched": sum(wrong),

@@ -3,12 +3,13 @@ pool of wire payloads the window cycles through.  The program and the
 reference are handed the same.
 
 The DTD (the schema) and the profile set's paths are the deployment's
-and come from the configuration (``dtd.seed``, ``profiles.seed``).  The
-run's seed draws the element names, which tag gets which wire code, the
-order of the profiles (so which shard each lands on), and the documents.
-Every seed so gets the same automaton and the same multiset of document
-sizes (``sizes``), in its own order: a seed changes the data and not the
-amount of work.
+and come from the configuration (``dtd.seed``, ``profiles.seed``); the
+profiles are drawn by the generator of their language
+(``profiles.kind``, ``languages/<kind>.py``).  The run's seed draws the
+element names, which tag gets which wire code, the order of the profiles
+(so which shard each lands on), and the documents.  Every seed so gets
+the same profile set and the same multiset of document sizes (``sizes``),
+in its own order: a seed changes the data and not the amount of work.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from . import languages
 from .gen import grammar, wire
 
 # independent random streams of one seed
@@ -28,6 +30,7 @@ class Inputs:
     profiles: list[str]          # profile g has global id g
     payloads: list[bytes]        # the pool, indexed by pool position
     seed: int
+    kind: str                    # the profile language, languages/<kind>
 
     @property
     def pool_bytes(self) -> np.ndarray:
@@ -55,10 +58,9 @@ def make(config: dict, traffic: dict, seed: int) -> Inputs:
     code_order = grammar.rng_for(seed, _CODES).permutation(n_tags)
     code = np.argsort(code_order)           # DTD tag -> wire code
     p = config["profiles"]
-    paths = grammar.profiles(children, names, n=p["count"],
-                             length=p["length"], p_desc=p["p_desc"],
-                             p_wild=p["p_wild"],
-                             rng=np.random.default_rng(p["seed"]))
+    language = languages.kind(config)
+    paths = languages.get(language).profiles(
+        children, names, p, np.random.default_rng(p["seed"]))
     order = grammar.rng_for(seed, _PROFILE_ORDER).permutation(p["count"])
     docs = config["documents"]
     n = traffic["pool"]
@@ -70,4 +72,4 @@ def make(config: dict, traffic: dict, seed: int) -> Inputs:
                                      rng=grammar.rng_for(seed, _DOCS, i))
         payloads.append(wire.encode(kind, code[tag], docs["text_fill"]))
     return Inputs([names[t] for t in code_order],
-                  [paths[i] for i in order], payloads, seed)
+                  [paths[i] for i in order], payloads, seed, language)

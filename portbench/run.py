@@ -53,8 +53,8 @@ def measure(workload: str, seed: int, seconds: float, trace: bool, *,
     import numpy as np
     import torch
 
-    from portbench import check, inputs as inputs_mod, roofline, spec
-    from portbench import trace as trace_mod
+    from portbench import check, inputs as inputs_mod, languages, roofline
+    from portbench import spec, trace as trace_mod
 
     bench = bench or spec.benchmark()
     cell = spec.cell(bench, workload)
@@ -99,10 +99,10 @@ def measure(workload: str, seed: int, seconds: float, trace: bool, *,
     ref_s = time.perf_counter() - t_ref
 
     dense = config["delivery"] == "dense"
-    per_tag = roofline.states_per_tag(inputs.profiles, inputs.tag_names)
-    work = np.array([roofline.document_work(
-        p, per_tag, n_profiles=len(inputs.profiles), matches=m, dense=dense)
-        for p, m in zip(inputs.payloads, n_match)], np.float64)
+    work_of = languages.get(inputs.kind).work_counter(inputs.profiles,
+                                                      inputs.tag_names)
+    work = np.array([work_of(p, matches=m, dense=dense)
+                     for p, m in zip(inputs.payloads, n_match)], np.float64)
     counts = rec["done_counts"]
     rec["docs"] = int(counts.sum())
     rec["bytes"] = int(counts @ inputs.pool_bytes)

@@ -44,6 +44,15 @@ def test_reference_is_independent_of_the_program(path):
                                           "portbench"}
 
 
+@pytest.mark.parametrize("path", sorted((HERE / "languages").rglob("*.py")),
+                         ids=lambda p: p.name)
+def test_languages_import_nothing_of_the_program(path):
+    """A language module reaches the harness's generators and reference
+    (``..``), never the program."""
+    assert not top_level_imports(path) & {"repro_torch", "repro", "jax",
+                                          "torch"}
+
+
 def test_names_compare_whole(tmp_path):
     f = tmp_path / "m.py"
     f.write_text("import repro_torch.core\nimport jaxlib.xla\n"

@@ -5,6 +5,7 @@ import pytest
 
 from portbench import check, inputs, spec
 from portbench.drivers import build_stage
+from portbench.languages import path
 from portbench.reference.automaton import Automaton, parse
 
 
@@ -55,7 +56,7 @@ def test_control_breaks_the_parent_child_guarantee():
     cfg, inp = tiny("xpath10k-msg8kb", 5, n_profiles=400, pool=24)
     want, _ = check.expected(inp, cfg["shards"])
     ctrl, _ = check.expected(inp, cfg["shards"],
-                             check.StacklessAutomaton(inp.profiles,
-                                                      inp.tag_names))
+                             path.StacklessAutomaton(inp.profiles,
+                                                     inp.tag_names))
     wrong = sum(not check.same(c, w) for c, w in zip(ctrl, want))
     assert wrong > 0
